@@ -1,4 +1,4 @@
-# kvzip-tpu build/test entry points (reference has `make i`; here:)
+# kvzip build/test entry points (reference has `make i`; here:)
 
 .PHONY: install native test bench clean
 

@@ -1,4 +1,4 @@
-// Native metric kernels for the KVzip-TPU eval harness.
+// Native metric kernels for the kvzip eval harness.
 //
 // Ratio sweeps evaluate thousands of (prediction, reference) pairs per run
 // (reference results/parse.py:106-140 loops evaluate_answer over every ratio

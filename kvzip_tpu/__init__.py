@@ -1,9 +1,9 @@
-"""KVzip-TPU: a TPU-native query-agnostic KV-cache compression framework.
+"""kvzip: a query-agnostic KV-cache compression engine.
 
 Rebuilds the capabilities of snu-mllab/KVzip (NeurIPS'25) — context
 reconstruction importance scoring, pair/head-level eviction, ragged
 compressed-cache decoding, quantized inference, and the eval harness — as an
-idiomatic JAX/XLA/Pallas inference engine for TPU.
+idiomatic JAX/XLA/Pallas inference engine for NVIDIA GPUs.
 """
 
 from kvzip_tpu.config import ModelConfig, PRESETS, get_model_id, resolve_config, tiny_config

@@ -1,4 +1,4 @@
-"""TPU-native KV cache for KVzip-style query-agnostic compression.
+"""KV cache for KVzip-style query-agnostic compression.
 
 Design (vs reference `/root/reference/attention/kvcache.py`):
 
@@ -77,7 +77,7 @@ class KVCache:
 class Int4KVCache:
     """INT4-quantized KV cache: packed nibbles + per-group scale/zero.
 
-    TPU-native counterpart of the reference ``OptimINT4KVCache``
+    Counterpart of the reference ``OptimINT4KVCache``
     (`model/quant_model/int4_kv.py:274-314`), but composable with BOTH the
     retain and evict paths (the reference forces retain-only,
     `model/wrapper.py:71-73`) and dequantized tile-wise inside attention
@@ -169,11 +169,11 @@ def _build_flat(cache: KVCache, keep: jax.Array, sink: int, r_pad: int,
     """Compact a dense cache into the flat decode layout.
 
     keep: (L, H, ctx_len) bool over the context region. r_pad: static padded
-    flat row count (>= max over layers of kept rows, multiple of the kernel
-    block). One stable argsort + gather per layer — the TPU equivalent of
-    reference ``prepare_init`` (`attention/kvcache.py:152-185`). Jitted so
-    the gather's broadcast index arrays fuse instead of materializing (a
-    multi-GB eager temporary at 131k).
+    flat row count (>= max over layers of kept rows). One stable argsort +
+    gather per layer — the equivalent of reference ``prepare_init``
+    (`attention/kvcache.py:152-185`). Jitted so the gather's broadcast index
+    arrays fuse instead of materializing (a multi-GB eager temporary at
+    131k).
     """
     L, H, C, D = cache.k.shape
     ctx_len = keep.shape[-1]
@@ -224,11 +224,8 @@ class FlatInt4KV:
 
     k_flat_q: jax.Array  # (L, D//2, R_pad) uint8 — K nibbles TRANSPOSED
     v_flat_q: jax.Array  # (L, D//2, R_pad) uint8 — V nibbles TRANSPOSED too:
-    #   a row-major (R_pad, 64) uint8 array gets a (8,128) minor tile, i.e.
-    #   XLA pads the 64-wide minor dim to 128 — 2x HBM at rest AND 2x decode
-    #   read traffic. Transposed, the minor dim is R_pad (tile-aligned); the
-    #   PV matmul runs f32 NT in the kernel (the fast NT form, like the int4
-    #   flash prefill kernel).
+    #   the pool and dense int4 caches keep the same (D//2, rows) columns,
+    #   so compaction moves packed rows verbatim.
     k_flat_s: jax.Array  # (L, R_pad) scales
     k_flat_z: jax.Array  # (L, R_pad) zero points
     v_flat_s: jax.Array
@@ -308,8 +305,8 @@ def _build_flat_int4(cache: Int4KVCache, keep: jax.Array, sink: int,
     return FlatInt4KV(
         k_flat_q=gather_kt(cache.k_q),
         v_flat_q=gather_kt(cache.v_q),
-        # scales/zeros stored f32: the decode kernel consumes f32 rows, so
-        # storing bf16 would re-cast 4 (R,) arrays per layer every step
+        # scales/zeros stored f32: decode dequantises in f32, so storing
+        # bf16 would re-cast 4 (R,) arrays per layer every step
         k_flat_s=gather3(cache.k_s)[..., 0].astype(jnp.float32),
         k_flat_z=gather3(cache.k_z)[..., 0].astype(jnp.float32),
         v_flat_s=gather3(cache.v_s)[..., 0].astype(jnp.float32),
@@ -329,7 +326,7 @@ class HybridKV:
     """Gemma3-style hybrid cache: full-length stacks for STATIC (global
     attention) layers + window-sized RING buffers for sliding layers.
 
-    TPU-native counterpart of reference ``RetainHybridCache``
+    Counterpart of reference ``RetainHybridCache``
     (`attention/kvcache.py:350-599`): its ``_sliding_update`` keeps only
     ``window`` rows per sliding layer (`:402-447`); round-1 kept
     full-capacity buffers + masking instead, wasting (C - window) rows per
@@ -428,7 +425,7 @@ def refold_flat(cache, r_pad_new: int):
     quantized cache quantizes on write, `int4_kv.py:100-267`).
 
     r_pad_new: static padded row count >= max over layers of
-    (kept rows + H_kv * tail_len), a multiple of the kernel block bucket.
+    (kept rows + H_kv * tail_len).
     """
     from kvzip_tpu.ops.quant import quantize_int4
 
@@ -510,10 +507,10 @@ def refold_flat(cache, r_pad_new: int):
 
 # Jitted so the gathers' broadcast index arrays fuse instead of
 # materializing multi-GB eager temporaries at long contexts. The *_donated
-# variants free each dense array as soon as its gather completes — at 480k
-# ctx the dense cache (7.3 GB) and the flat view cannot otherwise coexist
-# on a 16 GB chip. Use the donated form whenever the dense cache dies with
-# the call (prune); the plain form when it must survive (flatten_full).
+# variants free each dense array as soon as its gather completes, so the
+# dense cache and the flat view need not coexist. Use the donated form
+# whenever the dense cache dies with the call (prune); the plain form when
+# it must survive (flatten_full).
 build_flat = partial(jax.jit, static_argnums=(2, 3, 4))(_build_flat)
 build_flat_donated = partial(
     jax.jit, static_argnums=(2, 3, 4), donate_argnums=(0,))(_build_flat)
@@ -526,8 +523,7 @@ build_flat_int4_donated = partial(
 
 # ---- stepped donated int4 build: bounded-peak compaction at huge ctx ----
 # A single donated build cannot alias (output shapes differ from the dense
-# inputs), so dense + flat coexist for the whole gather: 10 GB dense +
-# 3.2 GB flat + weights OOMs a 16 GB chip at 3B/320k. The stepped form
+# inputs), so dense + flat coexist for the whole gather. The stepped form
 # gathers ONE dense array per jit call, donating it; block_until_ready
 # between steps guarantees the donated buffer is actually released before
 # the next gather launches, so peak stays at
@@ -596,8 +592,8 @@ def build_flat_int4_stepped(cache: Int4KVCache, keep: jax.Array, sink: int,
         jax.block_until_ready(out)   # donated input freed before next step
         return out
 
-    # scales first: frees ~0.6 GB of dense bf16 scale arrays before the two
-    # 4.7 GB nibble gathers (every 100 MB counts at 3B/320k on 16 GB)
+    # scales first: frees the dense scale arrays before the two (larger)
+    # nibble gathers
     k_flat_s = step(_gather_scale_donated, cache.k_s)
     k_flat_z = step(_gather_scale_donated, cache.k_z)
     v_flat_s = step(_gather_scale_donated, cache.v_s)
@@ -635,10 +631,10 @@ def init_int4_cache(cfg: ModelConfig, capacity: int, dtype=jnp.bfloat16,
     L, H, D = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
     G = max(D // min(group_size, D), 1)
     return Int4KVCache(
-        # K and V nibbles live transposed (D//2, C): the flash-int4 score
-        # matmul contracts q's minor dim against K's major dim (NN — the
-        # bf16 NT minor x minor contraction is a ~7x Mosaic slow path on
-        # v5e), and a row-major (BK, 64) uint8 manual DMA does not compile
+        # K and V nibbles live transposed (D//2, C), as they were laid out
+        # for the original accelerator's matrix unit; the attention here
+        # swaps them back to rows per call (ROADMAP: an int4 kernel with
+        # its own layout)
         k_q=jnp.zeros((L, H, D // 2, capacity), jnp.uint8),
         v_q=jnp.zeros((L, H, D // 2, capacity), jnp.uint8),
         k_s=jnp.zeros((L, H, capacity, G), dtype),
@@ -681,7 +677,8 @@ def append_layer_int4(cache_arrays: tuple, lens: jax.Array,
     from kvzip_tpu.ops.quant import quantize_int4
 
     k_q, v_q, k_s, k_z, v_s, v_z = cache_arrays
-    # split packing: TPU kernels unpack via concat (see ops/quant.py)
+    # split packing: element j in the high nibble, j + D/2 in the low one
+    # (see ops/quant.py)
     kq, ks, kz = quantize_int4(jnp.swapaxes(k_new, 0, 1), group_size,
                                pack="split")  # (H, T, ...)
     vq, vs, vz = quantize_int4(jnp.swapaxes(v_new, 0, 1), group_size,

@@ -54,7 +54,7 @@ def build_parser():
         "ground truth: a nonzero end-to-end check of save_result -> parse "
         "-> evaluate_answer whose table must DECREASE with the prune ratio "
         "(random-weight rehearsals otherwise score 0.00 everywhere, which "
-        "would also mask a scoring-path bug; VERDICT r4 weak #6). Results "
+        "would also mask a scoring-path bug). Results "
         "are tagged _canary so they never mix with real sweeps")
     sp_demo = sub.add_parser("demo", help="end-to-end compression demo")
     sp_demo.add_argument("--ctx_tokens", type=int, default=0,
@@ -209,27 +209,14 @@ def cmd_eval(args):
 
 
 def cmd_demo(args):
-    import os
-
     import jax
 
     from kvzip_tpu.engine import Engine
     from kvzip_tpu.utils import TimeStamp
     from kvzip_tpu.data.needle import synthetic_haystack
+    from kvzip_tpu.utils.compile_cache import enable_compile_cache
 
-    # persistent compilation cache: repeated demo runs skip recompiles
-    try:
-        cache_dir = os.environ.get(
-            "JAX_CACHE_DIR",
-            os.path.join(os.path.dirname(os.path.dirname(
-                os.path.abspath(__file__))), ".jax_cache"))
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception as e:  # pragma: no cover - depends on jax version
-        import sys as _sys
-        print(f"warning: persistent jit cache disabled ({e})",
-              file=_sys.stderr)
+    enable_compile_cache()
 
     stamp = TimeStamp(verbose=True, unit="ms")
     engine = Engine(args.model,
@@ -314,8 +301,8 @@ def cmd_demo(args):
 
         pruned_gb = state.used_gb()
         ms_pruned = _timed_ms_tok(state, f"{args.mode}@{ratio}")
-        # free the evicted cache first: full-flat + evicted + weights exceed
-        # 16 GB at long contexts (bench.py does the same)
+        # free the evicted cache first, so the full view, the evicted cache
+        # and the weights never need to fit together (bench.py does the same)
         is_pool = isinstance(state.cache, (PoolKV, PoolInt4KV))
         is_flat = isinstance(state.cache,
                              (FlatKV, FlatInt4KV)) or is_pool
@@ -326,37 +313,18 @@ def cmd_demo(args):
         state.cache = None
         state._snap = None
         gc.collect()
-        try:
-            if is_pool:
-                # head level prunes into the pool too now, so the honest
-                # same-run full-cache baseline exists for BOTH modes
-                # (round 3's head demo OOMed building a full flat stack
-                # beside the resident dense cache; VERDICT r3 item 4)
-                state_full = engine.synthetic_full_pool_state(
-                    state, flat_int4, tail_cap)
-            else:
-                state_full = engine.synthetic_full_flat_state(
-                    state, flat_int4, tail_cap)
-            ms_full = _timed_ms_tok(state_full, "full-cache")
-        except Exception as e:
-            # e.g. zero-copy head eviction keeps the dense cache resident;
-            # building the full-flat view on top can exceed 16 GB. Report
-            # the pruned side; the full-cache baseline is prune-independent
-            # and can be taken from a pair-level run at the same model/ctx.
-            print(f"full-cache baseline unavailable ({type(e).__name__}); "
-                  f"KVzip ({args.mode}@{ratio}): {pruned_gb:.2f} GB, "
-                  f"{ms_pruned:.2f} ms/token", flush=True)
-            print(json.dumps({"demo": {
-                "model": args.model, "mode": args.mode, "ratio": ratio,
-                "ctx_tokens": int(args.ctx_tokens or 0),
-                "kv_quant": args.kv_quant, "weight_quant": args.weight_quant,
-                "embed_quant": getattr(args, "embed_quant", "none"),
-                "full_gb_dense": full_gb, "pruned_gb": pruned_gb,
-                "ms_tok_pruned": round(ms_pruned, 2)}}), flush=True)
-            return
+        if is_pool:
+            # head level prunes into the pool too, so the honest same-run
+            # full-cache baseline exists for BOTH modes
+            state_full = engine.synthetic_full_pool_state(
+                state, flat_int4, tail_cap)
+        else:
+            state_full = engine.synthetic_full_flat_state(
+                state, flat_int4, tail_cap)
+        ms_full = _timed_ms_tok(state_full, "full-cache")
         # report the GB of the layout actually timed (flat, incl. row
-        # padding) so the GB and ms/token columns describe the same cache
-        # (ADVICE r2); the dense post-prefill live GB is in the stamp above
+        # padding) so the GB and ms/token columns describe the same cache;
+        # the dense post-prefill live GB is in the stamp above
         full_flat_gb = state_full.used_gb()
         print("=" * 100)
         print(f"Full KV cache:   {full_flat_gb:6.2f} GB ({full_gb:.2f} GB "
@@ -367,7 +335,7 @@ def cmd_demo(args):
               f"{ms_full / max(ms_pruned, 1e-9):.2f}x decode speedup "
               f"(reference demo.png: 27.5->8.2 GB, 49.0->24.1 ms/token)",
               flush=True)
-        # machine-readable artifact line (archived under bench_results/)
+        # machine-readable artifact line
         print(json.dumps({
             "demo": {
                 "model": args.model, "mode": args.mode, "ratio": ratio,
@@ -468,13 +436,6 @@ def cmd_parse(args):
 
 
 def main(argv=None):
-    # KVZIP_PLATFORM=cpu forces the backend (env vars alone are ignored when
-    # a TPU plugin pins jax_platforms via config)
-    platform = os.environ.get("KVZIP_PLATFORM")
-    if platform:
-        import jax
-
-        jax.config.update("jax_platforms", platform)
     args = build_parser().parse_args(argv)
     {"test": cmd_test, "eval": cmd_eval, "demo": cmd_demo,
      "parse": cmd_parse}[args.cmd](args)

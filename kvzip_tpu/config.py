@@ -1,4 +1,4 @@
-"""Model configuration for the KVzip-TPU framework.
+"""Model configuration for the kvzip framework.
 
 Mirrors the capability surface of the reference model zoo
 (`/root/reference/model/load.py:5-39`): llama3.x, qwen2.5-*-1M, qwen3-*,
@@ -68,12 +68,6 @@ class ModelConfig:
     gemma_style_norm: bool = False
     post_norms: bool = False
     hidden_act: str = "silu"
-
-    # --- runtime tactic (part of the jit key via the static cfg) ---
-    # fused Pallas RMSNorm-quant / act-mul-quant kernels on the W8A8 path
-    # (QServe's RMSNormGeneral / SiluAndMulQuant, w8a8kv4_llama.py:126-163);
-    # opt-in via Engine(act_fused="pallas")
-    fused_act: bool = False
 
     @property
     def num_kv_groups(self) -> int:

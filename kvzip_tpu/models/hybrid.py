@@ -38,7 +38,7 @@ from kvzip_tpu.ops import attention as attn_ops
     jax.jit,
     static_argnames=(
         "cfg", "collect_logits", "scoring", "score_width", "sink",
-        "attn_impl", "scoring_attend", "fuse_layer"),
+        "attn_impl", "scoring_attend"),
     donate_argnames=("cache",),
 )
 def forward_hybrid(
@@ -57,8 +57,6 @@ def forward_hybrid(
     attn_impl: str = "dense",
     scoring_attend: str = "full",  # hybrid scoring is always full-cache
                                    # (Engine rejects "window" for gemma3)
-    fuse_layer: str = "auto",      # accepted for forward-signature parity;
-                                   # the W4A8 megakernel never applies here
 ) -> ForwardResult:
     T = ids.shape[0]
     L, Hkv = cfg.num_layers, cfg.num_kv_heads
@@ -136,19 +134,9 @@ def forward_hybrid(
                 k_sink = k_l[:, :sink]
                 k_ctx = jax.lax.dynamic_slice(
                     k_l, (0, score_start, 0), (Hkv, score_width, Dh))
-                if attn_impl in ("flash", "flash_interpret"):
-                    from kvzip_tpu.ops.score_kernel import fused_scores
-                    keys = jnp.concatenate(
-                        [k_sink, k_ctx, jnp.swapaxes(k, 0, 1)], axis=1)
-                    layer_score = fused_scores(
-                        q, keys, score_len, score_qlen, sink=sink,
-                        s_ctx=score_width, scale=scale,
-                        interpret=(attn_impl == "flash_interpret"),
-                        model_dtype=dtype).astype(dtype)
-                else:
-                    layer_score = attn_ops.reconstruction_scores(
-                        q, k_sink, k_ctx, k, score_len, scale=scale,
-                        q_valid=score_qlen, out_dtype=dtype)
+                layer_score = attn_ops.reconstruction_scores(
+                    q, k_sink, k_ctx, k, score_len, scale=scale,
+                    q_valid=score_qlen, out_dtype=dtype)
             else:
                 layer_score = zero_score
 

@@ -2,8 +2,8 @@
 
 Layout: a dict with stacked per-layer arrays (leading ``L`` dim) so the whole
 decoder runs as one ``lax.scan`` over layers — compiled once, not per layer.
-Linear weights are stored as (in, out) so forward is ``x @ w`` (row-major
-matmul onto the MXU without transposes).
+Linear weights are stored as (in, out) so forward is ``x @ w`` (no
+transposes).
 """
 
 from __future__ import annotations
@@ -151,8 +151,8 @@ def load_hf_params(cfg: ModelConfig, ckpt_dir: str, dtype=jnp.bfloat16,
     stacks: weights stay on host until their ``chunk_layers``-layer chunk is
     pushed and quantized, so a 7B bf16 checkpoint converts with a device
     peak of roughly the final quantized size + one chunk's f32 temps —
-    materializing the full bf16 stacks first (~15 GB at 7B) OOMs a 16 GB
-    chip (VERDICT r2 item 4; the QServe reference sidesteps this by shipping
+    materializing the full bf16 stacks first (~15 GB at 7B) would double
+    the device peak (the QServe reference sidesteps this by shipping
     pre-quantized exports, `model/quant_model/w8a8kv4_llama.py:627-748`).
     """
     raw = _read_raw(ckpt_dir)
@@ -234,7 +234,7 @@ def quantize_layer_stacks(layers: dict, quant_fn, chunk_layers: int = 4
     """Chunked conversion of already-materialized bf16 layer stacks: each
     jit call quantizes ``chunk_layers`` layers, so the f32 temporaries never
     exceed one chunk (the unchunked form broadcast a 7.08 GB f32 temp per
-    stack at 7B — the OOM class that killed the r2 480k demo)."""
+    stack at 7B)."""
     out = dict(layers)
     for name in _BIG_SLOTS:
         w = layers.get(name)
@@ -346,8 +346,8 @@ def load_hf_params_w8a8(cfg: ModelConfig, ckpt_dir: str,
 def init_params_w8a8(cfg: ModelConfig, key: jax.Array,
                      dtype=jnp.bfloat16) -> Params:
     """Random-init directly in W8A8 form, one weight stack at a time — a 7B
-    bf16-init-then-quantize would transiently need ~21 GB and not fit one
-    v5e chip; stack-wise the peak overhead is a single bf16 stack."""
+    bf16-init-then-quantize would transiently need ~21 GB; stack-wise the
+    peak overhead is a single bf16 stack."""
     from kvzip_tpu.ops.quant import quantize_weight_int8
     return _init_params_quantized(cfg, key, dtype, quantize_weight_int8)
 
@@ -372,9 +372,8 @@ def _init_params_quantized(cfg: ModelConfig, key: jax.Array, dtype,
     }
     lp = {}
     # chunk the random init along layers: a whole (L, D, I) f32 stack is
-    # 7.6 GB at 7B — materializing it before quantization OOMs a 16 GB chip
-    # once other stacks are resident (measured at the 480k w4a8 demo). Each
-    # chunk's f32/bf16 temps die (block_until_ready) before the next starts.
+    # 7.6 GB at 7B — materializing it before quantization doubles the peak
+    # once other stacks are resident. Each chunk's f32/bf16 temps die (block_until_ready) before the next starts.
     CH = 4
     for i, name in enumerate(shapes):
         s = shapes[name]
@@ -430,7 +429,7 @@ def prepare_params(cfg: ModelConfig, model_name: str, *, dtype,
     Returns ``(params, effective_weight_quant)`` — the effective value can
     differ from the request when a checkpoint is itself pre-quantized (a
     QServe W8A8 export forces "w8a8"). Centralizing this here keeps
-    ``Engine.__init__`` free of loader special cases (VERDICT r2 weak #7).
+    ``Engine.__init__`` free of loader special cases.
 
     Memory discipline: every conversion path is chunked — stream-quantize
     for checkpoints, layer-chunked init for random weights, layer-chunked
@@ -470,12 +469,12 @@ def prepare_params(cfg: ModelConfig, model_name: str, *, dtype,
             # int4 per-group weights (beyond reference: QServe geometry) —
             # halves the decode-dominant weight read vs W8A8
             lp = quantize_layer_stacks(lp, quantize_weight_int4)
-        # fused qkv / gate-up stacks: single stacked-kernel launches with
-        # one shared activation quant (no-op if already fused)
+        # fused qkv / gate-up stacks: one GEMM each with one shared
+        # activation quant (no-op if already fused)
         lp = fuse_w4a8_params(lp)
         # v2 storage: byte rows trimmed to the true input dim (v1 group
         # padding was 12% of the 7B decode weight read), scales split by
-        # nibble half + pre-folded for the column-blocked v2 kernel
+        # nibble half + pre-folded
         from kvzip_tpu.ops.w4a8_v2 import repack_w4a8_layers
         D, I = cfg.hidden_size, cfg.intermediate_size
         att = cfg.num_heads * cfg.head_dim
@@ -484,8 +483,7 @@ def prepare_params(cfg: ModelConfig, model_name: str, *, dtype,
                  "w_gateup": D, "w_gate": D, "w_up": D, "w_down": I})
 
     if embed_quant == "int4h":
-        # int8 embed + INT4 lm_head (group-128 asymmetric, W4A8-v2 kernel):
-        # shaves ~0.4 ms off the 7B decode-step constant on top of int8.
+        # int8 embed + INT4 lm_head (group-128 asymmetric, W4A8-v2 storage).
         # Accuracy unvalidated without real checkpoints — opt-in only.
         from kvzip_tpu.ops.quant import quantize_embed_int8, quantize_head_int4
         params = dict(params)
@@ -499,9 +497,8 @@ def prepare_params(cfg: ModelConfig, model_name: str, *, dtype,
         if not isinstance(params["embed"], dict):
             params["embed"] = quantize_embed_int8(params["embed"], dtype)
     elif embed_quant == "int8" and not isinstance(params["embed"], dict):
-        # halves the ~1.1 GB bf16 embed/lm_head tables of a 7B model — the
-        # 480k-ctx demo does not fit on 16 GB without this (QServe keeps
-        # them fp16, so this is opt-in)
+        # halves the ~1.1 GB bf16 embed/lm_head tables of a 7B model
+        # (QServe keeps them fp16, so this is opt-in)
         from kvzip_tpu.ops.quant import quantize_embed_int8
         params = dict(params)
         params["embed"] = quantize_embed_int8(params["embed"], dtype)

@@ -1,4 +1,4 @@
-"""Pure-functional decoder forward for the KVzip-TPU engine.
+"""Pure-functional decoder forward for the kvzip engine.
 
 One ``lax.scan`` over stacked layer parameters (compiled once for the whole
 stack), threading the KV cache arrays through the carry so donated buffers are
@@ -13,7 +13,7 @@ reconstruction importance scores per layer, and the retain-mask / ragged
 lengths of the cache drive pruned attention. Quantized execution is also
 first-class: an ``Int4KVCache`` quantizes on append and dequantizes per tile
 inside attention, and W8A8 layer weights (``{"q": int8, "s": scales}`` dicts)
-run through dynamic-activation int8 MXU matmuls (QServe-style, reference
+run through dynamic-activation int8 matmuls (QServe-style, reference
 `model/quant_model/w8a8kv4_llama.py`).
 """
 
@@ -32,7 +32,13 @@ from kvzip_tpu.pool import PoolInt4KV, PoolKV
 from kvzip_tpu.config import ModelConfig
 from kvzip_tpu.models.rope import apply_rope, rope_cos_sin
 from kvzip_tpu.ops import attention as attn_ops
+from kvzip_tpu.ops import dispatch
 from kvzip_tpu.ops.quant import dequantize_int4, int8_linear
+
+
+# queries per forward at or below which a dense cache is read blockwise
+# (decode steps); larger chunks take the fused route
+DECODE_T_MAX = 8
 
 
 class ForwardResult(NamedTuple):
@@ -65,7 +71,7 @@ def _head_norm(x: jax.Array, w: jax.Array, eps: float, gemma: bool) -> jax.Array
 
 def _lin(x: jax.Array, w, bias=None) -> jax.Array:
     """Linear that dispatches on weight type: plain matmul, W8A8 int8, or
-    W4A8 int4-packed (Pallas)."""
+    W4A8 int4-packed."""
     if isinstance(w, dict):
         if "q4" in w:
             from kvzip_tpu.ops.w4a8 import w4a8_linear
@@ -89,32 +95,11 @@ def _lin_shared(x: jax.Array, weights, biases) -> list:
     return [_lin(x, w, b) for w, b in zip(weights, biases)]
 
 
-def _is_int8(w) -> bool:
-    return isinstance(w, dict) and "q" in w and "q4" not in w
-
-
-def _norm_lin_shared(x: jax.Array, norm_w, eps: float, gemma: bool,
-                     weights, biases, fused: bool) -> list:
-    """RMSNorm followed by shared-activation projections; when ``fused``
-    and the weights are W8A8, the norm + dynamic act-quant run as ONE
-    Pallas pass (QServe ``RMSNormGeneral`` parity, `w8a8kv4_llama.py:
-    126-147`; fp32 throughout — no intermediate bf16 round-trip)."""
-    if fused and _is_int8(weights[0]):
-        from kvzip_tpu.ops.fused_act import rmsnorm_quant
-        from kvzip_tpu.ops.quant import int8_matmul
-        xq, xs = rmsnorm_quant(x, norm_w, eps, gemma=gemma,
-                               interpret=jax.default_backend() == "cpu")
-        return [int8_matmul(xq, xs, w["q"], w["s"], b, x.dtype)
-                for w, b in zip(weights, biases)]
-    h = rms_norm(x, norm_w, eps, gemma=gemma)
-    return _lin_shared(h, weights, biases)
-
-
 @partial(
     jax.jit,
     static_argnames=(
         "cfg", "collect_logits", "scoring", "score_width", "sink",
-        "attn_impl", "scoring_attend", "fuse_layer"),
+        "attn_impl", "scoring_attend"),
     donate_argnames=("cache",),
 )
 def forward(
@@ -130,11 +115,12 @@ def forward(
     score_qlen: Optional[jax.Array] = None,   # () int32 true #repeat queries
     score_width: int = 0,                      # static padded window width
     sink: int = 0,                             # static sink length (sys prompt)
-    attn_impl: str = "dense",                  # "dense"|"blockwise"|"flash"|...
+    attn_impl: str = "dense",                  # dense caches: "dense" |
+                                               # "blockwise" | "cudnn";
+                                               # bf16 pools: "kernel" |
+                                               # "plain" (ops.dispatch)
     scoring_attend: str = "full",              # "full" | "window" (O(ctx·win)
                                                # approx; attention.py docs)
-    fuse_layer: str = "auto",                  # "auto"|"on"|"off" — per-layer
-                                               # fused W4A8 decode megakernel
 ) -> ForwardResult:
     T = ids.shape[0]
     is_int4 = isinstance(cache, Int4KVCache)
@@ -172,10 +158,8 @@ def forward(
         windows = None
 
     lp = params["layers"]
-    # W4A8 stacks are CLOSED OVER, not scanned: a scanned Pallas operand is
-    # materialized per layer (dynamic-slice copy of the whole weight), which
-    # tripled decode weight traffic (NOTES r2; same fix as the flat-decode
-    # kernels). The stacked kernels select the layer via scalar prefetch.
+    # W4A8 stacks are closed over, not scanned: w4a8_linear_stacked selects
+    # the layer itself, so the scan never slices the whole stack up front
     w4 = {k: v for k, v in lp.items()
           if isinstance(v, dict) and "q4" in v}
     lp = {k: v for k, v in lp.items() if k not in w4}
@@ -206,125 +190,40 @@ def forward(
     else:
         cache_arrays = (cache.k, cache.v)
 
-    # Per-layer fused megakernel (decode only): ONE launch for o-proj +
-    # residual + MLP + residual + next layer's norm+qkv — a 28-layer 7B
-    # decode step pays ~17 us of fixed pipeline/dispatch cost per Pallas
-    # launch (tools/probe_w4a8_v2.py), so launch count, not bandwidth, is
-    # the post-v2 bottleneck. Gated to the shapes it supports; the first
-    # layer's qkv comes from one composed call before the scan.
-    use_mega = (
-        fuse_layer != "off"
-        and not scoring and is_flat and T <= 8
-        and not getattr(cache, "tp", 0)
-        and attn_impl in ("flash", "flash_q8", "flash_interpret")
-        and (jax.default_backend() != "cpu" or fuse_layer == "on")
-        and all(k in w4 for k in ("wqkv", "wo", "w_gateup", "w_down"))
-        and all("s2" in w4[k] for k in ("wqkv", "wo", "w_gateup", "w_down"))
-        and not cfg.post_norms and not cfg.gemma_style_norm
-        and cfg.rope_local is None)
-    if use_mega:
-        ln_attn_stack = lp["ln_attn"][:, None, :]
-        ln_mlp_stack = lp["ln_mlp"][:, None, :]
-
     def _cache_attend_flat(q, layer_store, layer_idx):
-        """Pool/flat decode attention dispatch (shared by both layer fns)."""
-        interp_flag = attn_impl == "flash_interpret"
+        """Decode attention over the evicted pool/flat layouts."""
         if is_pool and getattr(cache, "tp", 0):
             # per-shard pools over local kv heads (parallel/pool_tp.py):
-            # each "model" shard runs the same single-device kernel on its
-            # own pool segment — attention stays collective-free under TP
+            # each "model" shard runs the single-device route on its own
+            # pool segment — attention stays collective-free under TP
             from kvzip_tpu.parallel.pool_tp import pool_attend_tp
             return pool_attend_tp(
                 q, cache, layer_store[0], layer_store[1], tail_len0,
-                layer_idx, scale=scale, interpret=interp_flag,
-                q8=(attn_impl == "flash_q8"))
+                layer_idx, scale=scale, route=attn_impl)
+        tail = (layer_store[0], layer_store[1], tail_len0)
+        if is_pool and is_flat_int4:
+            return attn_ops.pool_decode_int4(
+                q, *flat_arrays, flat_rh_all, cache.layer_off,
+                cache.layer_rows, *tail, layer_idx, scale=scale,
+                max_rows=cache.max_rows)
         if is_pool:
-            from kvzip_tpu.ops.pool_decode import (pool_decode_attend,
-                                                   pool_decode_attend_int4)
-            if is_flat_int4:
-                return pool_decode_attend_int4(
-                    q, *flat_arrays, flat_rh_all,
-                    cache.layer_off, cache.layer_rows,
-                    layer_store[0], layer_store[1], tail_len0, layer_idx,
-                    scale=scale, align=cache.align, max_rows=cache.max_rows,
-                    interpret=interp_flag, q8=(attn_impl == "flash_q8"))
-            return pool_decode_attend(
-                q, *flat_arrays, flat_rh_all,
-                cache.layer_off, cache.layer_rows,
-                layer_store[0], layer_store[1], tail_len0, layer_idx,
-                scale=scale, align=cache.align, max_rows=cache.max_rows,
-                interpret=interp_flag)
-        from kvzip_tpu.ops.flat_decode import (flat_decode_attend,
-                                               flat_decode_attend_int4)
+            return dispatch.pool_decode(attn_impl)(
+                q, *flat_arrays, flat_rh_all, cache.layer_off,
+                cache.layer_rows, *tail, layer_idx, scale=scale,
+                max_rows=cache.max_rows)
         if is_flat_int4:
-            return flat_decode_attend_int4(
-                q, *flat_arrays, flat_rh_all,
-                layer_store[0], layer_store[1], tail_len0, scale=scale,
-                interpret=interp_flag, q8=(attn_impl == "flash_q8"),
+            return attn_ops.flat_decode_int4(
+                q, *flat_arrays, flat_rh_all, *tail, scale=scale,
                 layer=layer_idx)
-        return flat_decode_attend(
-            q, flat_arrays[0], flat_arrays[1],
-            flat_rh_all, layer_store[0], layer_store[1],
-            tail_len0, scale=scale, interpret=interp_flag, layer=layer_idx)
-
-    def layer_fn_mega(carry, xs):
-        from kvzip_tpu.ops.w4a8_fused import w4a8_layer_fused
-
-        x, qkv, *store = carry
-        (layer_params, layer_idx, is_static, base_lens, valid_l) = xs
-        nq, nk = H * Dh, Hkv * Dh
-        q, k, v = (qkv[:, :nq], qkv[:, nq:nq + nk], qkv[:, nq + nk:])
-        if "bq" in layer_params:
-            q = q + layer_params["bq"]
-            k = k + layer_params["bk"]
-            v = v + layer_params["bv"]
-        q = q.reshape(T, H, Dh)
-        k = k.reshape(T, Hkv, Dh)
-        v = v.reshape(T, Hkv, Dh)
-        if cfg.qk_norm:
-            q = _head_norm(q, layer_params["q_norm"], cfg.rms_norm_eps,
-                           cfg.gemma_style_norm)
-            k = _head_norm(k, layer_params["k_norm"], cfg.rms_norm_eps,
-                           cfg.gemma_style_norm)
-        q = apply_rope(q, cos_g, sin_g)
-        k = apply_rope(k, cos_g, sin_g)
-
-        if is_pool:
-            # append T rows straight into the FULL (L, Hkv, Tcap, D) tail
-            # stacks (in-place on the donated carry) and hand the stacks to
-            # the pool kernel, whose prefetched layer scalar selects the
-            # block — the old per-layer slice + scatter-back materialized
-            # ~2.6 MB x 4 of copies per layer (~0.4 ms/step at Tcap=1280)
-            store = [
-                jax.lax.dynamic_update_slice(
-                    a, jnp.swapaxes(r, 0, 1)[None],
-                    (layer_idx, jnp.int32(0), tail_len0, jnp.int32(0)))
-                for a, r in zip(store, (k, v))]
-            layer_store = (store[0], store[1])
-        else:
-            layer_store = tuple(a[layer_idx] for a in store)
-            kt = jax.lax.dynamic_update_slice(
-                layer_store[0], jnp.swapaxes(k, 0, 1), (0, tail_len0, 0))
-            vt = jax.lax.dynamic_update_slice(
-                layer_store[1], jnp.swapaxes(v, 0, 1), (0, tail_len0, 0))
-            layer_store = (kt, vt)
-            store = [a.at[layer_idx].set(s)
-                     for a, s in zip(store, layer_store)]
-
-        attn_out = _cache_attend_flat(q, layer_store, layer_idx)
-        x, qkv_next = w4a8_layer_fused(
-            x, attn_out.reshape(T, H * Dh), ln_mlp_stack, ln_attn_stack,
-            w4["wo"], w4["w_gateup"], w4["w_down"], w4["wqkv"], layer_idx,
-            eps=cfg.rms_norm_eps,
-            interpret=jax.default_backend() == "cpu")
-        return (x, qkv_next, *store), jnp.zeros((Hkv, 0), dtype)
+        return attn_ops.flat_decode(q, *flat_arrays, flat_rh_all, *tail,
+                                    scale=scale, layer=layer_idx)
 
     def layer_fn(carry, xs):
         x, *store = carry
         (layer_params, layer_idx, is_static, base_lens, valid_l) = xs
 
         if "wqkv" in w4:
-            # fused W4A8 qkv: one stacked-kernel launch, one act quant
+            # fused W4A8 qkv: one GEMM, one act quant
             from kvzip_tpu.ops.w4a8 import w4a8_linear_stacked
             h = rms_norm(x, layer_params["ln_attn"], cfg.rms_norm_eps,
                          gemma=cfg.gemma_style_norm)
@@ -344,12 +243,13 @@ def forward(
                                     layer_params.get(b))
                 for n, b in (("wq", "bq"), ("wk", "bk"), ("wv", "bv")))
         else:
-            q, k, v = _norm_lin_shared(
-                x, layer_params["ln_attn"], cfg.rms_norm_eps,
-                cfg.gemma_style_norm,
-                (layer_params["wq"], layer_params["wk"], layer_params["wv"]),
+            h = rms_norm(x, layer_params["ln_attn"], cfg.rms_norm_eps,
+                         gemma=cfg.gemma_style_norm)
+            q, k, v = _lin_shared(
+                h, (layer_params["wq"], layer_params["wk"],
+                    layer_params["wv"]),
                 (layer_params.get("bq"), layer_params.get("bk"),
-                 layer_params.get("bv")), cfg.fused_act)
+                 layer_params.get("bv")))
         q = q.reshape(T, H, Dh)
         k = k.reshape(T, Hkv, Dh)
         v = v.reshape(T, Hkv, Dh)
@@ -372,13 +272,13 @@ def forward(
         # cache. Appending the repeat window produced a cache output whose
         # layout XLA could not alias to the donated input ("donated buffers
         # were not usable"), silently copying the full multi-GB cache every
-        # scoring chunk (~14 s/chunk at 7B/480k). The chunk's own K/V ride
-        # into the attention kernel as VMEM inputs instead.
+        # scoring chunk. The chunk's own K/V are appended to a local copy
+        # of the layer instead.
         readonly = scoring and is_int4
         if is_flat and is_pool and not getattr(cache, "tp", 0):
-            # stacked in-place tail append (see layer_fn_mega): the pool
-            # kernels take the full (L, ...) tail stacks, so the per-layer
-            # slice + scatter-back copies are never materialized
+            # stacked in-place tail append: the pool decode takes the full
+            # (L, ...) tail stacks, so the per-layer slice + scatter-back
+            # copies are never materialized
             store = [
                 jax.lax.dynamic_update_slice(
                     a, jnp.swapaxes(r, 0, 1)[None],
@@ -428,8 +328,7 @@ def forward(
                     pack="split")
                 # repeat-window keys go through the same quantization the
                 # cache stores (reference scores on dequantized keys,
-                # quant attn.py:55-57); the quantized forms also feed the
-                # read-only attention as extra VMEM rows
+                # quant attn.py:55-57)
                 from kvzip_tpu.ops.quant import quantize_int4
                 kq_r, ks_r, kz_r = quantize_int4(k, pack="split")
                 vq_r, vs_r, vz_r = quantize_int4(v, pack="split")
@@ -440,21 +339,9 @@ def forward(
                 k_ctx = jax.lax.dynamic_slice(
                     k_cache, (0, score_start, 0), (Hkv, score_width, Dh))
                 k_rep = k
-            if attn_impl in ("flash", "flash_interpret"):
-                # fused Pallas kernel: never materializes the (G, T, K)
-                # probability tensor in HBM
-                from kvzip_tpu.ops.score_kernel import fused_scores
-                keys = jnp.concatenate(
-                    [k_sink, k_ctx, jnp.swapaxes(k_rep, 0, 1)], axis=1)
-                layer_score = fused_scores(
-                    q, keys, score_len, score_qlen, sink=sink,
-                    s_ctx=score_width, scale=scale,
-                    interpret=(attn_impl == "flash_interpret"),
-                    model_dtype=dtype).astype(dtype)
-            else:
-                layer_score = attn_ops.reconstruction_scores(
-                    q, k_sink, k_ctx, k_rep, score_len, scale=scale,
-                    q_valid=score_qlen, out_dtype=dtype)
+            layer_score = attn_ops.reconstruction_scores(
+                q, k_sink, k_ctx, k_rep, score_len, scale=scale,
+                q_valid=score_qlen, out_dtype=dtype)
         else:
             layer_score = jnp.zeros((Hkv, 0), dtype)
 
@@ -487,20 +374,9 @@ def forward(
                 v_ctx = jax.lax.dynamic_slice(
                     v_cache, (0, score_start, 0), (Hkv, score_width, Dh))
                 v_rep = v
-            if attn_impl in ("flash", "flash_q8"):
-                # fused Pallas path: keys/vals stream through VMEM instead
-                # of materializing the (G, T, K) f32 logits+probs in HBM
-                # (~1.1 GB/layer/chunk at 7B — the reason the jnp path
-                # realized only ~1.2x of windowed mode's ~10x FLOPs win)
-                from kvzip_tpu.ops.windowed_attend import (
-                    windowed_scoring_attend_fused)
-                win_attn_out = windowed_scoring_attend_fused(
-                    q, k_sink, k_ctx, k_rep, v_sink, v_ctx, v_rep,
-                    score_len, scale=scale, out_dtype=dtype)
-            else:
-                win_attn_out = attn_ops.windowed_scoring_attend(
-                    q, k_sink, k_ctx, k_rep, v_sink, v_ctx, v_rep,
-                    score_len, scale=scale, out_dtype=dtype)
+            win_attn_out = attn_ops.windowed_scoring_attend(
+                q, k_sink, k_ctx, k_rep, v_sink, v_ctx, v_rep,
+                score_len, scale=scale, out_dtype=dtype)
 
         # -- attention over the cache --
         win = None
@@ -509,67 +385,26 @@ def forward(
         if win_attn_out is not None:
             attn_out = win_attn_out
         elif is_flat:
-            # pool/flat arrays closed over; the kernels' index maps select
-            # the layer's block range via prefetched scalars (no per-layer
-            # slice copy of the multi-MB context per scan iteration)
+            # pool/flat arrays closed over and indexed by layer (no
+            # per-layer slice copy of the context per scan iteration)
             attn_out = _cache_attend_flat(q, layer_store, layer_idx)
         elif is_int4:
             kq_a, vq_a, ks_a, kz_a, vs_a, vz_a = layer_store
-            # T >= 1: decode steps against a dense int4 cache (the
-            # zero-copy head-level eviction keeps the dense layout) run the
-            # same kernel — bandwidth-bound at small T, and the jnp
-            # fallback's whole-cache dequant is unusable at long context
-            use_kernel = (attn_impl in ("flash", "flash_q8", "flash_interpret")
-                          and ks_a.shape[-1] == 1
-                          and Dh % 128 == 0 and windows is None)
-            if use_kernel and readonly:
-                # read-only scoring: cache rows stream as usual, the
-                # chunk's own quantized K/V arrive as VMEM extras
-                from kvzip_tpu.ops.flash_int4 import flash_attend_int4_extra
-                attn_out = flash_attend_int4_extra(
-                    q, kq_a, ks_a[..., 0], kz_a[..., 0], vq_a,
-                    vs_a[..., 0], vz_a[..., 0], base_lens,
-                    kq_r, ks_r, kz_r, vq_r, vs_r, vz_r, scale=scale,
-                    interpret=(attn_impl == "flash_interpret"))
-            elif readonly:
-                # jnp fallback (CPU tests): local append, no carry write
-                tmp = append_layer_int4(layer_store, base_lens, k, v)
-                attn_out = attn_ops.attend_blockwise_int4(
-                    q, jnp.swapaxes(tmp[0], 1, 2), tmp[2], tmp[3],
-                    jnp.swapaxes(tmp[1], 1, 2), tmp[4], tmp[5], base_lens,
-                    valid_l, scale=scale, q_pos0=q_pos0, window=win)
-            elif use_kernel:
-                # int4 flash: NN matmuls against raw nibbles (K transposed)
-                from kvzip_tpu.ops.flash_int4 import flash_attend_int4
-                attn_out = flash_attend_int4(
-                    q, kq_a, ks_a[..., 0], kz_a[..., 0], vq_a,
-                    vs_a[..., 0], vz_a[..., 0], base_lens, q_pos0,
-                    scale=scale,
-                    interpret=(attn_impl == "flash_interpret"))
-            else:
-                # jnp fallback (CPU tests / sliding windows) reads K/V rows:
-                # swap the transposed nibble layout back (full-cache copy —
-                # acceptable off the TPU hot path only)
-                attn_out = attn_ops.attend_blockwise_int4(
-                    q, jnp.swapaxes(kq_a, 1, 2), ks_a, kz_a,
-                    jnp.swapaxes(vq_a, 1, 2), vs_a, vz_a, base_lens,
-                    valid_l, scale=scale, q_pos0=q_pos0, window=win)
-        elif attn_impl in ("flash", "flash_q8", "flash_interpret"):
-            # Pallas kernels: stream only live KV (no valid-mask support —
-            # the engine routes pruned-retain decode elsewhere). Small query
-            # counts (decode steps) take the ragged per-head-length kernel.
-            interp = attn_impl == "flash_interpret"
-            if T <= 8:
-                from kvzip_tpu.ops.ragged_decode import ragged_decode_attend
-                attn_out = ragged_decode_attend(
-                    q, layer_store[0], layer_store[1], base_lens,
-                    scale=scale, interpret=interp)
-            else:
-                from kvzip_tpu.ops.flash import flash_attend
-                attn_out = flash_attend(
-                    q, layer_store[0], layer_store[1], base_lens, q_pos0,
-                    scale=scale, interpret=interp)
-        elif attn_impl == "blockwise":
+            if readonly:
+                # read-only scoring: local append, no carry write
+                kq_a, vq_a, ks_a, kz_a, vs_a, vz_a = append_layer_int4(
+                    layer_store, base_lens, k, v)
+            # K/V nibbles are stored transposed (H, D//2, C); the blockwise
+            # form reads rows, so swap back (a full-layer copy per call)
+            attn_out = attn_ops.attend_blockwise_int4(
+                q, jnp.swapaxes(kq_a, 1, 2), ks_a, kz_a,
+                jnp.swapaxes(vq_a, 1, 2), vs_a, vz_a, base_lens,
+                valid_l, scale=scale, q_pos0=q_pos0, window=win)
+        elif attn_impl == "cudnn" and T > DECODE_T_MAX:
+            attn_out = attn_ops.attend_chunk_fused(
+                q, layer_store[0], layer_store[1], base_lens, k, v,
+                scale=scale)
+        elif attn_impl in ("blockwise", "cudnn"):
             attn_out = attn_ops.attend_blockwise(
                 q, layer_store[0], layer_store[1], base_lens, valid_l,
                 scale=scale, q_pos0=q_pos0, window=win)
@@ -602,28 +437,17 @@ def forward(
             gate = w4a8_linear_stacked(h2, w4["w_gate"], layer_idx)
             up = w4a8_linear_stacked(h2, w4["w_up"], layer_idx)
         else:
-            gate, up = _norm_lin_shared(
-                x, layer_params["ln_mlp"], cfg.rms_norm_eps,
-                cfg.gemma_style_norm,
-                (layer_params["w_gate"], layer_params["w_up"]),
-                (None, None), cfg.fused_act)
-        w_down = layer_params.get("w_down")
-        if (cfg.fused_act and "w_down" not in w4 and _is_int8(w_down)):
-            # fused act(gate)*up + dynamic quant feeding the int8 down
-            # projection (QServe SiluAndMulQuant, w8a8kv4_llama.py:149-163)
-            from kvzip_tpu.ops.fused_act import silu_mul_quant
-            from kvzip_tpu.ops.quant import int8_matmul
-            hq, hs = silu_mul_quant(
-                gate, up, act=cfg.hidden_act,
-                interpret=jax.default_backend() == "cpu")
-            mlp = int8_matmul(hq, hs, w_down["q"], w_down["s"], None, x.dtype)
+            h2 = rms_norm(x, layer_params["ln_mlp"], cfg.rms_norm_eps,
+                          gemma=cfg.gemma_style_norm)
+            gate, up = _lin_shared(
+                h2, (layer_params["w_gate"], layer_params["w_up"]),
+                (None, None))
+        hidden = _act(gate, cfg.hidden_act) * up
+        if "w_down" in w4:
+            from kvzip_tpu.ops.w4a8 import w4a8_linear_stacked
+            mlp = w4a8_linear_stacked(hidden, w4["w_down"], layer_idx)
         else:
-            hidden = _act(gate, cfg.hidden_act) * up
-            if "w_down" in w4:
-                from kvzip_tpu.ops.w4a8 import w4a8_linear_stacked
-                mlp = w4a8_linear_stacked(hidden, w4["w_down"], layer_idx)
-            else:
-                mlp = _lin(hidden, layer_params["w_down"])
+            mlp = _lin(hidden, layer_params["w_down"])
         if cfg.post_norms:
             mlp = rms_norm(mlp, layer_params["ln_post_mlp"], cfg.rms_norm_eps,
                            gemma=cfg.gemma_style_norm)
@@ -635,15 +459,8 @@ def forward(
                 else jnp.ones((L, 1, 1), jnp.bool_))
     xs = (lp, jnp.arange(L, dtype=jnp.int32), is_static_layers,
           cache.lengths, valid_xs)
-    if use_mega:
-        from kvzip_tpu.ops.w4a8 import w4a8_linear_stacked
-        h0 = rms_norm(x, lp["ln_attn"][0], cfg.rms_norm_eps)
-        qkv0 = w4a8_linear_stacked(h0, w4["wqkv"], jnp.int32(0))
-        (x, _, *cache_arrays), scores = jax.lax.scan(
-            layer_fn_mega, (x, qkv0, *cache_arrays), xs)
-    else:
-        (x, *cache_arrays), scores = jax.lax.scan(
-            layer_fn, (x, *cache_arrays), xs)
+    (x, *cache_arrays), scores = jax.lax.scan(
+        layer_fn, (x, *cache_arrays), xs)
 
     if is_flat:
         new_cache = dataclasses.replace(

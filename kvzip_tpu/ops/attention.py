@@ -1,9 +1,9 @@
-"""Attention over the fixed-capacity KV cache (jnp backends).
+"""Attention over the KV cache (plain jnp/lax, compiled by XLA).
 
-These are the portable/XLA implementations; the Pallas kernels in
-``kvzip_tpu.ops.flash`` / ``ragged_decode`` replace them on TPU for long
-sequences. Semantics cover every path of the reference attention forwards
-(`/root/reference/attention/attn.py:19-96`):
+These are the portable implementations and the references every kernel is
+compared with; `kvzip_tpu.ops.dispatch` says which of them, or which kernel,
+runs on each platform. Semantics cover every path of the reference
+attention forwards (reference `attention/attn.py:19-96`):
 
 - dense causal prefill attention,
 - retain-path masked attention (boolean ``valid`` → -inf, reference
@@ -27,6 +27,7 @@ import jax
 import jax.numpy as jnp
 
 NEG_INF = float("-inf")
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def attend_dense(
@@ -40,14 +41,16 @@ def attend_dense(
     q_pos0: Optional[jax.Array] = None,  # () int32 — global position of query 0
     window: Optional[int] = None,        # sliding-window size (gemma3 local layers)
 ) -> jax.Array:
-    """Reference jnp attention; returns (T, H, D). fp32 softmax."""
+    """Reference jnp attention; returns (T, H, D). float32 products at
+    HIGHEST precision (no TF32 on a GPU), float32 softmax."""
     T, H, D = q.shape
     Hkv, C, _ = k_cache.shape
     G = H // Hkv
 
     qg = q.reshape(T, Hkv, G, D).transpose(1, 2, 0, 3)  # (Hkv, G, T, D)
     scores = jnp.einsum("hgtd,hcd->hgtc", qg.astype(jnp.float32),
-                        k_cache.astype(jnp.float32)) * scale
+                        k_cache.astype(jnp.float32),
+                        precision=_HIGHEST) * scale
 
     col = jax.lax.broadcasted_iota(jnp.int32, (Hkv, T, C), 2)
     row = jax.lax.broadcasted_iota(jnp.int32, (Hkv, T, C), 1)
@@ -62,7 +65,8 @@ def attend_dense(
 
     scores = jnp.where(mask[:, None, :, :], scores, NEG_INF)
     probs = jax.nn.softmax(scores, axis=-1)
-    out = jnp.einsum("hgtc,hcd->hgtd", probs, v_cache.astype(jnp.float32))
+    out = jnp.einsum("hgtc,hcd->hgtd", probs, v_cache.astype(jnp.float32),
+                     precision=_HIGHEST)
     return out.transpose(2, 0, 1, 3).reshape(T, H, D).astype(q.dtype)
 
 
@@ -81,7 +85,7 @@ def attend_blockwise(
     """Online-softmax attention scanned over KV blocks (flash-style in XLA).
 
     Never materializes (T, C) probabilities — memory is O(T * kv_block). Works
-    on any backend; the Pallas kernel supersedes it on TPU.
+    on any backend.
     """
     T, H, D = q.shape
     Hkv, C, _ = k_cache.shape
@@ -132,6 +136,52 @@ def attend_blockwise(
 
     out = acc / jnp.maximum(l, 1e-37)
     return out.transpose(2, 0, 1, 3).reshape(T, H, D).astype(q.dtype)
+
+
+def attend_chunk_fused(
+    q: jax.Array,          # (T, H, D) queries at rows [base, base + T)
+    k_cache: jax.Array,    # (H_kv, C, D) — rows [0, base) are the prefix
+    v_cache: jax.Array,
+    base_lens: jax.Array,  # (H_kv,) int32 rows before this chunk
+    k_new: jax.Array,      # (T, H_kv, D) this chunk's own keys
+    v_new: jax.Array,
+    *,
+    scale: float,
+    implementation: str = "cudnn",
+) -> jax.Array:
+    """Chunked-prefill attention through ``jax.nn.dot_product_attention``
+    (``implementation="cudnn"``: cuDNN's fused flash attention, the role
+    FlashAttention-2 has in the reference system).
+
+    The fused kernels align a causal mask at the top-left corner, while a
+    chunk's queries sit after ``base`` cached rows. So the chunk attends in
+    two calls, each with every kv head as its own batch row (its GQA group
+    as the query heads, ragged ``base_lens`` as key lengths): the cached
+    prefix without a mask and the chunk itself causally. The two partial
+    softmaxes are merged through their log-sum-exp. Same semantics as
+    :func:`attend_dense` with ``valid=None``; returns (T, H, D).
+    """
+    T, H, D = q.shape
+    Hkv = k_cache.shape[0]
+    G = H // Hkv
+    qb = q.reshape(T, Hkv, G, D).transpose(1, 0, 2, 3)       # (Hkv, T, G, D)
+    lens = base_lens.astype(jnp.int32)
+    o_pre, lse_pre = jax.nn.dot_product_attention(
+        qb, k_cache[:, :, None], v_cache[:, :, None], scale=scale,
+        query_seq_lengths=jnp.full((Hkv,), T, jnp.int32),
+        key_value_seq_lengths=jnp.maximum(lens, 1),
+        implementation=implementation, return_residual=True)
+    o_new, lse_new = jax.nn.dot_product_attention(
+        qb, jnp.swapaxes(k_new, 0, 1)[:, :, None],
+        jnp.swapaxes(v_new, 0, 1)[:, :, None], scale=scale, is_causal=True,
+        implementation=implementation, return_residual=True)
+    lse_pre = jnp.where((lens > 0)[:, None, None],
+                        lse_pre.astype(jnp.float32), NEG_INF)
+    lse_new = lse_new.astype(jnp.float32)
+    lse = jnp.logaddexp(lse_pre, lse_new)                    # (Hkv, T, G)
+    out = (o_pre.astype(jnp.float32) * jnp.exp(lse_pre - lse)[..., None]
+           + o_new.astype(jnp.float32) * jnp.exp(lse_new - lse)[..., None])
+    return out.transpose(1, 0, 2, 3).reshape(T, H, D).astype(q.dtype)
 
 
 def attend_ring(
@@ -311,8 +361,10 @@ def reconstruction_scores(
     keys = jnp.concatenate(
         [k_sink, k_ctx, jnp.swapaxes(k_rep, 0, 1)], axis=1)  # (Hkv, S_sink+S_ctx+T, D)
 
-    logits = jnp.einsum("hgtd,hkd->hgtk", qg.astype(jnp.float32),
-                        keys.astype(jnp.float32),
+    # model-dtype operands at HIGHEST precision with float32 accumulation:
+    # bf16 products are exact in float32 and f32 inputs never drop to TF32
+    logits = jnp.einsum("hgtd,hkd->hgtk", qg, keys.astype(qg.dtype),
+                        precision=_HIGHEST,
                         preferred_element_type=jnp.float32) * scale
 
     K = S_sink + S_ctx + T
@@ -325,8 +377,13 @@ def reconstruction_scores(
     bad = causal_bad | pad_bad
 
     logits = jnp.where(bad[None, None, :, :], NEG_INF, logits)
-    # parity: reference computes softmax on model-dtype (bf16) logits
-    logits = logits.astype(out_dtype).astype(jnp.float32)
+    # parity: reference computes softmax on model-dtype (bf16) logits.
+    # reduce_precision, not a convert pair: XLA may drop an f32->bf16->f32
+    # round trip on the GPU (excess precision), and then this rounding would
+    # depend on how the surrounding program fuses
+    fi = jnp.finfo(out_dtype)
+    logits = jax.lax.reduce_precision(logits, exponent_bits=fi.nexp,
+                                      mantissa_bits=fi.nmant)
     probs = jax.nn.softmax(logits, axis=-1)
 
     ctx_probs = jax.lax.dynamic_slice_in_dim(probs, S_sink, S_ctx, axis=-1)
@@ -373,7 +430,7 @@ def windowed_scoring_attend(
     (the scoring pass restores the cache snapshot and only
     ``chunk_scores`` — which IS q_valid-masked — leaves the forward). Any
     future consumer of the full windowed attention output must mask rows
-    ``>= q_valid`` itself (ADVICE r4).
+    ``>= q_valid`` itself.
     """
     T, H, D = q.shape
     Hkv = k_sink.shape[0]
@@ -387,7 +444,7 @@ def windowed_scoring_attend(
         [v_sink, v_ctx, jnp.swapaxes(v_rep, 0, 1)], axis=1)
 
     logits = jnp.einsum("hgtd,hkd->hgtk", qg.astype(jnp.float32),
-                        keys.astype(jnp.float32),
+                        keys.astype(jnp.float32), precision=_HIGHEST,
                         preferred_element_type=jnp.float32) * scale
     K = S_sink + S_ctx + T
     col = jax.lax.broadcasted_iota(jnp.int32, (T, K), 1)
@@ -399,5 +456,160 @@ def windowed_scoring_attend(
     # f32 online softmax), NOT the score hook's deliberate bf16 round-trip
     probs = jax.nn.softmax(logits, axis=-1)
     out = jnp.einsum("hgtk,hkd->hgtd", probs, vals.astype(jnp.float32),
-                     preferred_element_type=jnp.float32)
+                     precision=_HIGHEST, preferred_element_type=jnp.float32)
     return out.transpose(2, 0, 1, 3).reshape(T, H, D).astype(out_dtype)
+
+
+# ------------------------------------------------ evicted (segment) layouts
+# After eviction the context KV is frozen in a "segment" layout: every kv
+# head's kept rows back to back, each row tagged with its kv head
+# (``row_head``, -1 on padding), plus a small bf16 append tail per head for
+# the query/answer tokens (the reference's flattened varlen cache,
+# `attention/kvcache.py:152-185` + `attention/attn.py:56-73`). The pool
+# (`kvzip_tpu.pool`) concatenates all layers' segments with per-layer
+# offsets; the flat layout (`cache.FlatKV`) stacks layers at one padded
+# width. Keys are stored transposed, (D, rows).
+
+
+def dequant_cols(packed: jax.Array, s: jax.Array, z: jax.Array,
+                 dtype) -> jax.Array:
+    """Split-packed int4 columns (D//2, R) uint8 with per-column scale and
+    zero (R,) -> (D, R): byte j holds element j in the high nibble and
+    j + D/2 in the low one (`ops.quant` ``pack="split"``)."""
+    p = packed.astype(jnp.int32)
+    n = jnp.concatenate([p >> 4, p & 0xF], axis=0).astype(jnp.float32)
+    return (n * s.astype(jnp.float32) + z.astype(jnp.float32)).astype(dtype)
+
+
+def pool_segment(arrays, row_head, layer_off, layer_rows, layer, max_rows: int):
+    """One layer's window of a pool: ``arrays`` are pool arrays whose LAST
+    axis is the pool row (K (D, P), V^T (D, P), scales (1, P), ...). Returns
+    the (…, R) windows, R = min(max_rows, P), and the window's row heads
+    with every row outside the layer's live range set to -1.
+
+    The window start is clamped into the pool (as ``dynamic_slice`` would)
+    and liveness is decided on absolute row numbers, so a clamp never
+    shifts a row onto the wrong head."""
+    P = row_head.shape[-1]
+    R = min(max_rows, P)
+    off = layer_off[layer]
+    start = jnp.clip(off, 0, P - R)
+    take = [jax.lax.dynamic_slice_in_dim(a, start, R, axis=a.ndim - 1)
+            for a in arrays]
+    rh = jax.lax.dynamic_slice_in_dim(row_head.reshape(P), start, R)
+    g = start + jnp.arange(R, dtype=jnp.int32)
+    live = (g >= off) & (g < off + layer_rows[layer])
+    return take, jnp.where(live, rh, -1)
+
+
+def segment_decode_attend(
+    q: jax.Array,          # (T, H, D)
+    k_seg: jax.Array,      # (D, R) keys, transposed
+    v_seg: jax.Array,      # (R, D)
+    rh_seg: jax.Array,     # (R,) int32 kv head of each row, -1 if not live
+    k_tail: jax.Array,     # (Hkv, Tcap, D) — this call's T rows appended
+    v_tail: jax.Array,     #   at tail_len already
+    tail_len: jax.Array,   # () or (Hkv,) int32 tail rows before this call
+    *,
+    scale: float,
+) -> jax.Array:
+    """Decode attention over one layer's evicted segment plus its tail.
+
+    The plain form of the evicted decode and the reference the pool kernel
+    is compared with. Query head h reads segment rows with
+    ``rh_seg == h // G`` and tail rows ``[0, tail_len + i + 1)`` for its
+    i-th query. Merged batches (``n_seq`` sequences) need nothing extra:
+    their row heads are already global (``b * Hkv + h``) and their query
+    heads sequence-major, so ``h // G`` names the right sequence.
+    float32 products at HIGHEST precision, float32 softmax; returns
+    (T, H, D) in q's dtype.
+    """
+    T, H, D = q.shape
+    Hkv, Tcap, _ = k_tail.shape
+    G = H // Hkv
+    f32 = jnp.float32
+    qg = q.reshape(T, Hkv, G, D).astype(f32)
+    s_ctx = jnp.einsum("thgd,dr->thgr", qg, k_seg.astype(f32),
+                       precision=_HIGHEST) * scale
+    heads = jnp.arange(Hkv, dtype=jnp.int32)
+    s_ctx = jnp.where(rh_seg[None, None, None, :] == heads[None, :, None, None],
+                      s_ctx, NEG_INF)
+    s_tail = jnp.einsum("thgd,hcd->thgc", qg, k_tail.astype(f32),
+                        precision=_HIGHEST) * scale
+    tl = jnp.broadcast_to(jnp.asarray(tail_len, jnp.int32), (Hkv,))
+    qi = jnp.arange(T, dtype=jnp.int32)
+    col = jnp.arange(Tcap, dtype=jnp.int32)
+    ok_tail = col[None, None, :] < (tl[None, :, None] + qi[:, None, None] + 1)
+    s_tail = jnp.where(ok_tail[:, :, None, :], s_tail, NEG_INF)
+    probs = jax.nn.softmax(jnp.concatenate([s_ctx, s_tail], axis=-1), axis=-1)
+    R = k_seg.shape[1]
+    out = (jnp.einsum("thgr,rd->thgd", probs[..., :R], v_seg.astype(f32),
+                      precision=_HIGHEST)
+           + jnp.einsum("thgc,hcd->thgd", probs[..., R:], v_tail.astype(f32),
+                        precision=_HIGHEST))
+    return out.reshape(T, H, D).astype(q.dtype)
+
+
+def _layer_tail(k_tail, v_tail, layer):
+    """(L, Hkv, Tcap, D) stacks -> the layer's (Hkv, Tcap, D) tails; a
+    per-layer tail passes through."""
+    if k_tail.ndim == 4:
+        return k_tail[layer], v_tail[layer]
+    return k_tail, v_tail
+
+
+def pool_decode_reference(q, k_pool, v_pool, row_head, layer_off, layer_rows,
+                          k_tail, v_tail, tail_len, layer, *, scale: float,
+                          max_rows: int):
+    """Plain decode over a bf16 pool (`pool.PoolKV` arrays): K (D, P),
+    V (P, D), row_head (1, P); tails stacked (L, ...) or per layer."""
+    (k_seg, vt_seg), rh = pool_segment(
+        (k_pool, v_pool.T), row_head, layer_off, layer_rows, layer, max_rows)
+    kt, vt = _layer_tail(k_tail, v_tail, layer)
+    return segment_decode_attend(q, k_seg, vt_seg.T, rh, kt, vt, tail_len,
+                                 scale=scale)
+
+
+def pool_decode_int4(q, k_pool_q, k_pool_s, k_pool_z, v_pool_q, v_pool_s,
+                     v_pool_z, row_head, layer_off, layer_rows, k_tail,
+                     v_tail, tail_len, layer, *, scale: float, max_rows: int):
+    """Decode over an int4 pool (`pool.PoolInt4KV` arrays): dequantise the
+    layer's window, then :func:`segment_decode_attend`."""
+    (kq, ks, kz, vq, vs, vz), rh = pool_segment(
+        (k_pool_q, k_pool_s, k_pool_z, v_pool_q, v_pool_s, v_pool_z),
+        row_head, layer_off, layer_rows, layer, max_rows)
+    kt, vt = _layer_tail(k_tail, v_tail, layer)
+    k_seg = dequant_cols(kq, ks, kz, q.dtype)
+    v_seg = dequant_cols(vq, vs, vz, q.dtype).T
+    return segment_decode_attend(q, k_seg, v_seg, rh, kt, vt, tail_len,
+                                 scale=scale)
+
+
+def flat_decode(q, k_flat, v_flat, row_head, k_tail, v_tail, tail_len, *,
+                scale: float, layer=None):
+    """Decode over the flat layout (`cache.FlatKV`): K (D, R), V (R, D),
+    row_head (R,), or their (L, ...) stacks with ``layer``. Single and
+    merged (sequence-major) caches alike; see :func:`segment_decode_attend`.
+    """
+    if layer is not None:
+        k_flat, v_flat, row_head = k_flat[layer], v_flat[layer], row_head[layer]
+    kt, vt = _layer_tail(k_tail, v_tail, layer)
+    return segment_decode_attend(q, k_flat, v_flat, row_head, kt, vt,
+                                 tail_len, scale=scale)
+
+
+def flat_decode_int4(q, k_flat_q, k_flat_s, k_flat_z, v_flat_q, v_flat_s,
+                     v_flat_z, row_head, k_tail, v_tail, tail_len, *,
+                     scale: float, layer=None):
+    """Decode over the int4 flat layout (`cache.FlatInt4KV`): nibbles
+    (D//2, R) for K and V, scales/zeros (R,), or (L, ...) stacks."""
+    arrs = (k_flat_q, k_flat_s, k_flat_z, v_flat_q, v_flat_s, v_flat_z,
+            row_head)
+    if layer is not None:
+        arrs = tuple(a[layer] for a in arrs)
+    kq, ks, kz, vq, vs, vz, rh = arrs
+    kt, vt = _layer_tail(k_tail, v_tail, layer)
+    return segment_decode_attend(
+        q, dequant_cols(kq, ks, kz, q.dtype),
+        dequant_cols(vq, vs, vz, q.dtype).T, rh, kt, vt, tail_len,
+        scale=scale)

@@ -1,23 +1,26 @@
-"""Pallas decode attention over the POOL layout (`kvzip_tpu.pool`).
+"""Decode attention over the POOL layout (`kvzip_tpu.pool`): a Pallas
+kernel for the GPU through the Triton route (``backend="triton"``).
 
-Same math as `ops.flat_decode` (online softmax over frozen context blocks +
-a bf16 tail folded in at the last step; INT4 quant params folded out of the
-matmuls algebraically), but the context arrays hold EVERY layer's kept rows
-concatenated in one pool:
+It is the reference system's varlen flash decode (`attention/attn.py:
+56-73`): each kv head's kept rows are one variable-length key sequence and
+that head's GQA group is packed into the query rows. The plain form, and
+the reference this kernel is checked against, is
+`ops.attention.pool_decode_reference`.
 
-- the grid is one axis of ``nb_max`` key blocks; the index maps add the
-  current layer's block offset (prefetched scalars — same trick as the
-  stacked flat kernels' layer select, no host-side slice copy);
-- layers with fewer live blocks than ``nb_max`` clamp their index map to
-  their last block: Pallas skips the copy when consecutive steps map to the
-  same block, so a dead step costs only the ~2 us grid-step floor and the
-  kernel reads exactly the live footprint of the CURRENT layer (+ at most
-  one alignment block of padding, masked via ``row_head == -1``).
+Split-K flash decoding:
 
-This is what makes head-level eviction decode FAST: the round-3 uniform
-r_pad flat stack degenerated to full capacity whenever one layer kept all
-its heads (reference head-level parity: `model/wrapper.py:40-58` decodes
-through the same varlen fast path as pair level, `attention/attn.py:56-73`).
+- the grid is (kv head, query tile, split). Within a layer's segment the
+  rows of one kv head are contiguous (every pool builder writes head-major
+  order), so the wrapper finds each head's [start, end) row range and the
+  head's splits divide it; a block still masks its rows by ``row_head``, so
+  the range only bounds the work and never decides correctness;
+- the last split of every head attends over that head's bf16 tail
+  (query/answer rows, causal in the query index);
+- every split writes an unnormalised partial (o, m, l); a second pass in
+  XLA combines the splits.
+
+The kernel takes the whole pool and tail stacks plus the layer number, so
+the decode scan never copies a per-layer slice of them.
 """
 
 from __future__ import annotations
@@ -26,409 +29,208 @@ import functools
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltr
 
-NEG_INF = float("-inf")
-
-
-def _pick_block(max_rows: int, align: int, rows_q: int) -> int:
-    """Key-block size: a power of two dividing ``align`` (so every layer
-    offset is block-aligned), capped by the (rows_q, BLK) f32 score tile's
-    VMEM budget, targeting a grid near ~32 steps at decode shapes.
-
-    Up to 64k-row blocks at huge contexts: the decode-step CONSTANT of a
-    28-layer model includes every dead (clamped) grid step of every
-    launch, measured at ~0.9 ms/step with 32k blocks at 480k
-    (tools/profile_decode_r5.py) — halving the step count takes a direct
-    bite out of it on BOTH the pruned and full sides."""
-    a = 1 << (align.bit_length() - 1)
-    if a != align:
-        raise ValueError(f"pool align must be a power of two, got {align}")
-    tgt = max(128, max_rows // 32)
-    blk = 1 << max(tgt - 1, 1).bit_length()
-    vmem_cap = max(128, (12 * 2 ** 20 // (4 * rows_q)) // 128 * 128)
-    cap = 1 << (min(vmem_cap, 65536).bit_length() - 1)
-    return max(128, min(blk, cap, align))
+# masked logits: finite, so an all-masked block never produces inf - inf
+_MASKED = -0.7 * float(np.finfo(np.float32).max)
+_SM_COUNT = 132  # H100 SXM streaming multiprocessors
 
 
-def _online_update(sl, s, v_fn, m_scr, l_scr, acc_scr):
-    """One online-softmax step on scratch slice ``sl`` from scores ``s``;
-    ``v_fn(p)`` returns the (rows, D) value contribution (plus any rank-1
-    correction already added)."""
-    m_prev = m_scr[sl]
-    m_new = jnp.maximum(m_prev, jnp.max(s, axis=1, keepdims=True))
-    alpha = jnp.where(jnp.isfinite(m_prev), jnp.exp(m_prev - m_new), 0.0)
-    p = jnp.where(jnp.isfinite(s), jnp.exp(s - m_new), 0.0)
-    l_scr[sl] = l_scr[sl] * alpha + jnp.sum(p, axis=1, keepdims=True)
-    acc_scr[sl] = acc_scr[sl] * alpha + v_fn(p)
-    m_scr[sl] = m_new
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length()
 
 
-def _pool_int4_kernel(meta_ref, q_ref, rh_ref, kq_ref, ks_ref, kz_ref,
-                      vq_ref, vs_ref, vz_ref, kt_ref, vt_ref,
-                      o_ref, m_scr, l_scr, acc_scr,
-                      *, num_layers: int, nb_max: int, n_q: int, g: int,
-                      scale: float, dtype, q8: bool, stacked_tail: bool):
-    kb = pl.program_id(0)
-    HT, D = q_ref.shape
-    Hkv, Tcap, _ = kt_ref.shape[-3:]
-    layer = meta_ref[0]
-    nb_l = meta_ref[1 + num_layers + layer]
+def _online(carry, s, ok, v):
+    """One flash step on logits ``s`` (rows, blk) with mask ``ok``."""
+    o, m, l = carry
+    s = jnp.where(ok, s, _MASKED)
+    m_new = jnp.maximum(m, s.max(axis=-1))
+    corr = jnp.exp(m - m_new)
+    p = jnp.where(ok, jnp.exp(s - m_new[:, None]), 0.0)
+    l_new = l * corr + p.sum(axis=-1)
+    # p.V with p split into two bf16 terms (~16 mantissa bits): with one
+    # bf16 p about a third of the bf16 outputs sit an ulp off the float32
+    # reference; split, about one in five hundred
+    p_hi = p.astype(v.dtype)
+    p_lo = (p - p_hi.astype(jnp.float32)).astype(v.dtype)
+    o_new = o * corr[:, None] + pl.dot(p_hi, v) + pl.dot(p_lo, v)
+    return o_new, m_new, l_new
 
-    @pl.when(kb == 0)
-    def _():
-        m_scr[...] = jnp.full((HT, 1), NEG_INF, jnp.float32)
-        l_scr[...] = jnp.zeros((HT, 1), jnp.float32)
-        acc_scr[...] = jnp.zeros((HT, D), jnp.float32)
 
+def _pool_kernel(meta_ref, q_ref, k_ref, v_ref, rh_ref, kt_ref, vt_ref,
+                 o_ref, m_ref, l_ref, *, n_splits: int, block_k: int,
+                 block_t: int, n_q: int, scale: float):
+    h = pl.program_id(0)
+    split = pl.program_id(2)
+    block_q, D = q_ref.shape
+    Tcap = kt_ref.shape[2]
+    # [start, end) rows of this head in the pool, tail rows before this
+    # call, and the tail stack's layer
+    start, end, tail_len, layer = (meta_ref[0], meta_ref[1], meta_ref[2],
+                                   meta_ref[3])
     q = q_ref[...]
-    r_ids = jax.lax.broadcasted_iota(jnp.int32, (HT, 1), 0)
-    q_kvhead = (r_ids // n_q) // g
-    qsum = jnp.sum(q.astype(jnp.float32), axis=1, keepdims=True)
-    q_hi = (q[:, :D // 2] * q.dtype.type(1.0 / 16.0)).astype(jnp.float32)
-    q_lo = q[:, D // 2:].astype(jnp.float32) - q_hi
+    rows = pl.program_id(1) * block_q + jnp.arange(block_q)
+    qi = rows % n_q
+    init = (jnp.zeros((block_q, D), jnp.float32),
+            jnp.full((block_q,), _MASKED, jnp.float32),
+            jnp.zeros((block_q,), jnp.float32))
 
-    @pl.when(kb < nb_l)
-    def _():
-        # ---- scores: lo-only unpack + packed-byte matmul (flat_decode) ----
-        if q8:
-            kB = jax.lax.bitcast_convert_type(kq_ref[...] ^ 0x80, jnp.int8)
-            kLO = jax.lax.bitcast_convert_type(kq_ref[...] & 0xF, jnp.int8)
+    def context():
+        chunk = pl.cdiv(pl.cdiv(end - start, n_splits), block_k) * block_k
+        lo = start + split * chunk
+        hi = jnp.minimum(lo + chunk, end)
+        n_blk = pl.cdiv(jnp.maximum(hi - lo, 0), block_k)
 
-            def quant_rows(x):
-                s = jnp.max(jnp.abs(x), axis=1, keepdims=True) / 127.0 + 1e-20
-                return jnp.round(x / s).astype(jnp.int8), s
+        def body(i, carry):
+            j = lo + i * block_k
+            cols = j + jnp.arange(block_k)
+            live = cols < hi
+            kT = pltr.load(k_ref.at[:, pl.ds(j, block_k)],
+                           mask=live[None, :], other=0.0)
+            rh = pltr.load(rh_ref.at[pl.ds(j, block_k)], mask=live, other=-1)
+            v = pltr.load(v_ref.at[pl.ds(j, block_k), :],
+                          mask=live[:, None], other=0.0)
+            s = pl.dot(q, kT) * scale
+            ok = jnp.broadcast_to((live & (rh == h))[None, :], s.shape)
+            return _online(carry, s, ok, v)
 
-            qh8, qh_s = quant_rows(q_hi)
-            ql8, ql_s = quant_rows(q_lo)
-            a = jax.lax.dot_general(qh8, kB, (((1,), (0,)), ((), ())),
-                                    preferred_element_type=jnp.int32)
-            bsum = jnp.sum(qh8.astype(jnp.float32), axis=1, keepdims=True)
-            m_lo = jax.lax.dot_general(ql8, kLO, (((1,), (0,)), ((), ())),
-                                       preferred_element_type=jnp.int32)
-            qn = (qh_s * (a.astype(jnp.float32) + 128.0 * bsum)
-                  + ql_s * m_lo.astype(jnp.float32))
-        else:
-            kpi = kq_ref[...].astype(jnp.int32)
-            kB = kpi.astype(q.dtype)
-            kLO = (kpi & 0xF).astype(q.dtype)
-            qn = (jax.lax.dot_general(
-                q_hi.astype(q.dtype), kB, (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32)
-                + jax.lax.dot_general(
-                    q_lo.astype(q.dtype), kLO, (((1,), (0,)), ((), ())),
-                    preferred_element_type=jnp.float32))
-        s = (qn * ks_ref[...] + qsum * kz_ref[...]) * scale
-        s = jnp.where(rh_ref[...] == q_kvhead, s, NEG_INF)
+        return jax.lax.fori_loop(0, n_blk, body, init)
 
-        vs = vs_ref[...]
-        vz = vz_ref[...]
+    def tail():
+        n = jnp.minimum(tail_len + n_q, Tcap)
 
-        def v_contrib(p):
-            ps = p * vs
-            pz = jnp.sum(p * vz, axis=1, keepdims=True)
-            if q8:
-                vB = jax.lax.bitcast_convert_type(
-                    vq_ref[...] ^ 0x80, jnp.int8)
-                vLO = jax.lax.bitcast_convert_type(
-                    vq_ref[...] & 0xF, jnp.int8)
-                ps_s = jnp.max(ps, axis=1, keepdims=True) / 127.0 + 1e-20
-                pp = jnp.round(ps / ps_s).astype(jnp.int8)
-                psum = jnp.sum(pp.astype(jnp.float32), axis=1, keepdims=True)
-                m1i = jax.lax.dot_general(pp, vB, (((1,), (1,)), ((), ())),
-                                          preferred_element_type=jnp.int32)
-                m2i = jax.lax.dot_general(pp, vLO, (((1,), (1,)), ((), ())),
-                                          preferred_element_type=jnp.int32)
-                m1 = ps_s * (m1i.astype(jnp.float32) + 128.0 * psum)
-                m2 = ps_s * m2i.astype(jnp.float32)
-            else:
-                vpi = vq_ref[...].astype(jnp.int32)
-                m1 = jax.lax.dot_general(
-                    ps, vpi.astype(jnp.float32), (((1,), (1,)), ((), ())),
-                    preferred_element_type=jnp.float32)
-                m2 = jax.lax.dot_general(
-                    ps, (vpi & 0xF).astype(jnp.float32),
-                    (((1,), (1,)), ((), ())),
-                    preferred_element_type=jnp.float32)
-            return jnp.concatenate(
-                [(m1 - m2) * (1.0 / 16.0), m2], axis=1) + pz
+        def body(i, carry):
+            j = i * block_t
+            cols = j + jnp.arange(block_t)
+            live = cols < n
+            kt = pltr.load(kt_ref.at[layer, h, pl.ds(j, block_t), :],
+                           mask=live[:, None], other=0.0)
+            vt = pltr.load(vt_ref.at[layer, h, pl.ds(j, block_t), :],
+                           mask=live[:, None], other=0.0)
+            s = pl.dot(q, kt.T) * scale
+            ok = live[None, :] & (cols[None, :] < tail_len + qi[:, None] + 1)
+            return _online(carry, s, ok, vt)
 
-        _online_update(slice(None), s, v_contrib, m_scr, l_scr, acc_scr)
+        return jax.lax.fori_loop(0, pl.cdiv(n, block_t), body, init)
 
-    # ---- tail (query/answer KV) folded in at the last grid step ----
-    @pl.when(kb == nb_max - 1)
-    def _():
-        rows_h = g * n_q
-        col_t = jax.lax.broadcasted_iota(jnp.int32, (rows_h, Tcap), 1)
-        qi = jax.lax.broadcasted_iota(jnp.int32, (rows_h, Tcap), 0) % n_q
-        for hh in range(Hkv):
-            maskt = col_t < meta_ref[1 + 2 * num_layers + hh] + qi + 1
-            sl = slice(hh * rows_h, (hh + 1) * rows_h)
-            ktl = kt_ref[0, hh] if stacked_tail else kt_ref[hh]
-            vtl = vt_ref[0, hh] if stacked_tail else vt_ref[hh]
-            st = jax.lax.dot_general(
-                q[sl], ktl, (((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32) * scale
-            st = jnp.where(maskt, st, NEG_INF)
-            _online_update(
-                sl, st,
-                lambda p: jax.lax.dot_general(
-                    p.astype(vtl.dtype), vtl,
-                    (((1,), (0,)), ((), ())),
-                    preferred_element_type=jnp.float32),
-                m_scr, l_scr, acc_scr)
-
-        o_ref[...] = (acc_scr[...] /
-                      jnp.maximum(l_scr[...], 1e-37)).astype(dtype)
+    o, m, l = jax.lax.cond(split == n_splits, tail, context)
+    o_ref[...] = o
+    m_ref[...] = m
+    l_ref[...] = l
 
 
-def _pool_bf16_kernel(meta_ref, q_ref, rh_ref, kf_ref, vf_ref, kt_ref,
-                      vt_ref, o_ref, m_scr, l_scr, acc_scr,
-                      *, num_layers: int, nb_max: int, n_q: int, g: int,
-                      scale: float, dtype, stacked_tail: bool):
-    kb = pl.program_id(0)
-    HT, D = q_ref.shape
-    Hkv, Tcap, _ = kt_ref.shape[-3:]
-    layer = meta_ref[0]
-    nb_l = meta_ref[1 + num_layers + layer]
-
-    @pl.when(kb == 0)
-    def _():
-        m_scr[...] = jnp.full((HT, 1), NEG_INF, jnp.float32)
-        l_scr[...] = jnp.zeros((HT, 1), jnp.float32)
-        acc_scr[...] = jnp.zeros((HT, D), jnp.float32)
-
-    q = q_ref[...]
-    r_ids = jax.lax.broadcasted_iota(jnp.int32, (HT, 1), 0)
-    q_kvhead = (r_ids // n_q) // g
-
-    @pl.when(kb < nb_l)
-    def _():
-        s = jax.lax.dot_general(
-            q, kf_ref[...], (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32) * scale
-        s = jnp.where(rh_ref[...] == q_kvhead, s, NEG_INF)
-        _online_update(
-            slice(None), s,
-            lambda p: jax.lax.dot_general(
-                p.astype(vf_ref.dtype), vf_ref[...], (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32),
-            m_scr, l_scr, acc_scr)
-
-    @pl.when(kb == nb_max - 1)
-    def _():
-        rows_h = g * n_q
-        col_t = jax.lax.broadcasted_iota(jnp.int32, (rows_h, Tcap), 1)
-        qi = jax.lax.broadcasted_iota(jnp.int32, (rows_h, Tcap), 0) % n_q
-        for hh in range(Hkv):
-            maskt = col_t < meta_ref[1 + 2 * num_layers + hh] + qi + 1
-            sl = slice(hh * rows_h, (hh + 1) * rows_h)
-            ktl = kt_ref[0, hh] if stacked_tail else kt_ref[hh]
-            vtl = vt_ref[0, hh] if stacked_tail else vt_ref[hh]
-            st = jax.lax.dot_general(
-                q[sl], ktl, (((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32) * scale
-            st = jnp.where(maskt, st, NEG_INF)
-            _online_update(
-                sl, st,
-                lambda p: jax.lax.dot_general(
-                    p.astype(vtl.dtype), vtl,
-                    (((1,), (0,)), ((), ())),
-                    preferred_element_type=jnp.float32),
-                m_scr, l_scr, acc_scr)
-
-        o_ref[...] = (acc_scr[...] /
-                      jnp.maximum(l_scr[...], 1e-37)).astype(dtype)
+def head_ranges(row_head, layer_off, layer_rows, layer, n_heads: int,
+                max_rows: int):
+    """(n_heads,) [start, end) pool rows of each kv head in the layer's
+    live segment (start = end = 0 for a head with no rows): the smallest
+    range holding all of the head's rows, whatever their order."""
+    P = row_head.shape[-1]
+    R = min(max_rows, P)
+    off = layer_off[layer]
+    base = jnp.clip(off, 0, P - R)
+    rh = jax.lax.dynamic_slice_in_dim(row_head.reshape(P), base, R)
+    g = base + jnp.arange(R, dtype=jnp.int32)
+    live = (g >= off) & (g < off + layer_rows[layer])
+    match = live[None, :] & (
+        rh[None, :] == jnp.arange(n_heads, dtype=jnp.int32)[:, None])
+    end = jnp.max(jnp.where(match, g + 1, 0), axis=1)
+    start = jnp.min(jnp.where(match, g, P), axis=1)
+    return jnp.where(end > 0, start, 0), end
 
 
-def _meta(layer, layer_off, layer_rows, tail_len, Hkv_all, BLK):
-    """Prefetched scalars: [layer, block offsets (L,), live blocks (L,),
-    tail lengths (Hkv,)]. Dead layers still own >= 1 (padding) block so the
-    clamped index map never goes negative."""
-    off_blk = (layer_off // BLK).astype(jnp.int32)
-    nb = jnp.maximum(-(-layer_rows // BLK), 1).astype(jnp.int32)
-    tl = tail_len.astype(jnp.int32)
-    tl = jnp.broadcast_to(tl, (Hkv_all,)) if tl.ndim == 0 else tl
-    return jnp.concatenate([layer.astype(jnp.int32)[None], off_blk, nb, tl])
-
-
-def _blk_map(L: int):
-    """Pool index map: step through the CURRENT layer's blocks, clamped to
-    its last live block (consecutive equal indices skip the DMA — dead
-    steps only pay the grid-step floor)."""
-    def blk(kb, m):
-        layer = m[0]
-        nb_l = m[1 + L + layer]
-        return (0, m[1 + layer] + jnp.minimum(kb, nb_l - 1))
-
-    return blk
+def pick_splits(n_heads: int, q_tiles: int, max_rows: int,
+                block_k: int) -> int:
+    """Splits per head: enough programs for two waves over the SMs, but
+    no split shorter than one key block on an even share of the rows."""
+    want = max(1, (2 * _SM_COUNT) // (n_heads * q_tiles))
+    most = max(1, max_rows // (n_heads * block_k))
+    return _pow2_at_least(min(want, most))
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=("scale", "align", "max_rows", "block", "interpret",
-                     "q8"))
-def pool_decode_attend_int4(
-    q: jax.Array,          # (T, H, D)
-    k_pool_q: jax.Array,   # (D//2, P) uint8 TRANSPOSED nibbles
-    k_pool_s: jax.Array,   # (1, P) f32
-    k_pool_z: jax.Array,
-    v_pool_q: jax.Array,   # (D//2, P) uint8 TRANSPOSED
-    v_pool_s: jax.Array,
-    v_pool_z: jax.Array,
-    row_head: jax.Array,   # (1, P) int32
-    layer_off: jax.Array,  # (L,) int32 row offsets
-    layer_rows: jax.Array,  # (L,) int32 live rows
-    k_tail: jax.Array,     # (Hkv, T_cap, D) bf16 — CURRENT layer's tail,
-    v_tail: jax.Array,     # or (L, Hkv, T_cap, D): the FULL tail stacks —
-    tail_len: jax.Array,   # the prefetched layer scalar selects the block
-    layer: jax.Array,      # (saves the decode scan's per-layer slice COPY
-    *,                     # + scatter-back, ~0.4 ms/step at a 1280 cap)
-    scale: float,
-    align: int,
-    max_rows: int,
-    block: int = 32768,
-    interpret: bool = False,
-    q8: bool = False,
-) -> jax.Array:
-    T, H, D = q.shape
-    stacked_tail = k_tail.ndim == 4
-    Hkv, Tcap, _ = k_tail.shape[-3:]
-    G = H // Hkv
-    L = layer_off.shape[0]
-    HT = H * T
-
-    BLK = min(_pick_block(max_rows, align, HT), block)
-    nb_max = -(-max_rows // BLK)
-
-    q2 = q.transpose(1, 0, 2).reshape(HT, D)
-    meta = _meta(layer, layer_off, layer_rows, tail_len, Hkv, BLK)
-
-    blk = _blk_map(L)
-    if stacked_tail:
-        tail_spec = pl.BlockSpec((1, Hkv, Tcap, D),
-                                 lambda kb, m: (m[0], 0, 0, 0))
-    else:
-        tail_spec = pl.BlockSpec((Hkv, Tcap, D), lambda kb, m: (0, 0, 0))
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(nb_max,),
-        in_specs=[
-            pl.BlockSpec((HT, D), lambda kb, m: (0, 0)),
-            pl.BlockSpec((1, BLK), blk),          # row_head
-            pl.BlockSpec((D // 2, BLK), blk),     # k nibbles
-            pl.BlockSpec((1, BLK), blk),          # k scale
-            pl.BlockSpec((1, BLK), blk),          # k zero
-            pl.BlockSpec((D // 2, BLK), blk),     # v nibbles
-            pl.BlockSpec((1, BLK), blk),          # v scale
-            pl.BlockSpec((1, BLK), blk),          # v zero
-            tail_spec,
-            tail_spec,
-        ],
-        out_specs=pl.BlockSpec((HT, D), lambda kb, m: (0, 0)),
-        scratch_shapes=[
-            pltpu.VMEM((HT, 1), jnp.float32),
-            pltpu.VMEM((HT, 1), jnp.float32),
-            pltpu.VMEM((HT, D), jnp.float32),
-        ],
-    )
-    kernel = functools.partial(
-        _pool_int4_kernel, num_layers=L, nb_max=nb_max, n_q=T, g=G,
-        scale=scale, dtype=q.dtype, q8=q8, stacked_tail=stacked_tail)
-
-    out = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((HT, D), q.dtype),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-            vmem_limit_bytes=127 * 2 ** 20),
-        interpret=interpret,
-    )(meta, q2, row_head.astype(jnp.int32), k_pool_q,
-      k_pool_s.astype(jnp.float32), k_pool_z.astype(jnp.float32),
-      v_pool_q, v_pool_s.astype(jnp.float32),
-      v_pool_z.astype(jnp.float32), k_tail, v_tail)
-
-    return out.reshape(H, T, D).transpose(1, 0, 2)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("scale", "align", "max_rows", "block", "interpret"))
+    static_argnames=("scale", "max_rows", "block_k", "interpret"))
 def pool_decode_attend(
-    q: jax.Array,          # (T, H, D)
-    k_pool: jax.Array,     # (D, P) — TRANSPOSED
-    v_pool: jax.Array,     # (P, D)
-    row_head: jax.Array,   # (1, P) int32
-    layer_off: jax.Array,  # (L,)
-    layer_rows: jax.Array,
-    k_tail: jax.Array,     # (Hkv, T_cap, D) — CURRENT layer's tail, or
-    v_tail: jax.Array,     # (L, Hkv, T_cap, D) full stacks (layer-selected
-    tail_len: jax.Array,   # by the prefetched scalar, no slice copy)
-    layer: jax.Array,
+    q: jax.Array,           # (T, H, D)
+    k_pool: jax.Array,      # (D, P) keys, transposed
+    v_pool: jax.Array,      # (P, D)
+    row_head: jax.Array,    # (1, P) int32, -1 on padding
+    layer_off: jax.Array,   # (L,) int32 first pool row of each layer
+    layer_rows: jax.Array,  # (L,) int32 live rows of each layer
+    k_tail: jax.Array,      # (L, Hkv, Tcap, D) or this layer's (Hkv, Tcap, D)
+    v_tail: jax.Array,
+    tail_len: jax.Array,    # () or (Hkv,) int32 tail rows before this call
+    layer: jax.Array,       # () int32
     *,
     scale: float,
-    align: int,
     max_rows: int,
-    block: int = 32768,
+    block_k: int = 64,
     interpret: bool = False,
 ) -> jax.Array:
+    """Pool decode attention; same contract as
+    `ops.attention.pool_decode_reference`. bf16 operands with float32
+    accumulation; returns (T, H, D) in q's dtype. ``block_k``: key rows per
+    block (64 and 128 measured alike on an H100; tests use 16 to cross
+    several blocks at tiny sizes)."""
     T, H, D = q.shape
-    stacked_tail = k_tail.ndim == 4
-    Hkv, Tcap, _ = k_tail.shape[-3:]
+    tail_layer = layer
+    if k_tail.ndim == 3:  # this layer's tails only
+        k_tail, v_tail, tail_layer = k_tail[None], v_tail[None], 0
+    _, Hkv, Tcap, _ = k_tail.shape
     G = H // Hkv
-    L = layer_off.shape[0]
-    HT = H * T
+    GT = G * T
+    block_q = min(64, max(16, _pow2_at_least(GT)))
+    GTp = -(-GT // block_q) * block_q
+    q_tiles = GTp // block_q
+    n_splits = pick_splits(Hkv, q_tiles, max_rows, block_k)
+    block_t = min(128, max(16, _pow2_at_least(Tcap)))
 
-    BLK = min(_pick_block(max_rows, align, HT), block)
-    nb_max = -(-max_rows // BLK)
+    # query rows of kv head h: (g, t) with t fastest
+    qh = q.reshape(T, Hkv, G, D).transpose(1, 2, 0, 3).reshape(Hkv, GT, D)
+    qh = jnp.pad(qh, ((0, 0), (0, GTp - GT), (0, 0)))
+    start, end = head_ranges(row_head, layer_off, layer_rows, layer, Hkv,
+                             max_rows)
+    tl = jnp.broadcast_to(jnp.asarray(tail_len, jnp.int32), (Hkv,))
+    meta = jnp.stack([start, end, tl, jnp.broadcast_to(
+        jnp.asarray(tail_layer, jnp.int32), (Hkv,))], axis=1)
 
-    q2 = q.transpose(1, 0, 2).reshape(HT, D)
-    meta = _meta(layer, layer_off, layer_rows, tail_len, Hkv, BLK)
-
-    blk = _blk_map(L)
-
-    def vblk(kb, m):
-        layer = m[0]
-        nb_l = m[1 + L + layer]
-        return (m[1 + layer] + jnp.minimum(kb, nb_l - 1), 0)
-
-    if stacked_tail:
-        tail_spec = pl.BlockSpec((1, Hkv, Tcap, D),
-                                 lambda kb, m: (m[0], 0, 0, 0))
-    else:
-        tail_spec = pl.BlockSpec((Hkv, Tcap, D), lambda kb, m: (0, 0, 0))
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(nb_max,),
-        in_specs=[
-            pl.BlockSpec((HT, D), lambda kb, m: (0, 0)),
-            pl.BlockSpec((1, BLK), blk),          # row_head
-            pl.BlockSpec((D, BLK), blk),          # k (transposed)
-            pl.BlockSpec((BLK, D), vblk),         # v (row-major)
-            tail_spec,
-            tail_spec,
-        ],
-        out_specs=pl.BlockSpec((HT, D), lambda kb, m: (0, 0)),
-        scratch_shapes=[
-            pltpu.VMEM((HT, 1), jnp.float32),
-            pltpu.VMEM((HT, 1), jnp.float32),
-            pltpu.VMEM((HT, D), jnp.float32),
-        ],
-    )
+    S = n_splits + 1
     kernel = functools.partial(
-        _pool_bf16_kernel, num_layers=L, nb_max=nb_max, n_q=T, g=G,
-        scale=scale, dtype=q.dtype, stacked_tail=stacked_tail)
-
-    out = pl.pallas_call(
+        _pool_kernel, n_splits=n_splits, block_k=block_k, block_t=block_t,
+        n_q=T, scale=scale)
+    whole = lambda a: pl.BlockSpec(a.shape, lambda h, i, s: (0,) * a.ndim)
+    rh = row_head.reshape(-1).astype(jnp.int32)
+    o, m, l = pl.pallas_call(
         kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((HT, D), q.dtype),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-            vmem_limit_bytes=127 * 2 ** 20),
+        grid=(Hkv, q_tiles, S),
+        in_specs=[
+            pl.BlockSpec((None, 4), lambda h, i, s: (h, 0)),
+            pl.BlockSpec((None, block_q, D), lambda h, i, s: (h, i, 0)),
+            whole(k_pool), whole(v_pool), whole(rh),
+            whole(k_tail), whole(v_tail),
+        ],
+        out_specs=[
+            pl.BlockSpec((None, None, block_q, D),
+                         lambda h, i, s: (s, h, i, 0)),
+            pl.BlockSpec((None, None, block_q), lambda h, i, s: (s, h, i)),
+            pl.BlockSpec((None, None, block_q), lambda h, i, s: (s, h, i)),
+        ],
+        out_shape=[
+            jax.ShapeDtypeStruct((S, Hkv, GTp, D), jnp.float32),
+            jax.ShapeDtypeStruct((S, Hkv, GTp), jnp.float32),
+            jax.ShapeDtypeStruct((S, Hkv, GTp), jnp.float32),
+        ],
+        compiler_params=pltr.CompilerParams(num_warps=4, num_stages=2),
+        backend="triton",
         interpret=interpret,
-    )(meta, q2, row_head.astype(jnp.int32), k_pool, v_pool, k_tail, v_tail)
+        name="pool_decode",
+    )(meta, qh, k_pool, v_pool, rh, k_tail, v_tail)
 
-    return out.reshape(H, T, D).transpose(1, 0, 2)
+    # combine the splits (the tail split always holds >= 1 live row)
+    m_all = m.max(axis=0)
+    w = jnp.exp(m - m_all[None])
+    out = (o * w[..., None]).sum(axis=0) / (l * w).sum(axis=0)[..., None]
+    out = out[:, :GT].reshape(Hkv, G, T, D).transpose(2, 0, 1, 3)
+    return out.reshape(T, H, D).astype(q.dtype)

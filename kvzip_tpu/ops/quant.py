@@ -7,11 +7,11 @@ Parity targets:
   (even element in the high nibble).
 - W8A8 semantics of QServe-style `model/quant_model/w8a8kv4_llama.py`:
   per-output-channel int8 weights + dynamic per-token int8 activations, int8
-  MXU matmul with int32 accumulation.
+  matmul with int32 accumulation.
 
 Unlike the reference (which dequantizes the whole KV cache to fp16 before
-attention, `int4_kv.py:242-267`), the attention kernels here dequantize
-tiles in-register — HBM traffic stays at the int4 footprint.
+attention, `int4_kv.py:242-267`), attention here dequantizes one key block
+(dense caches) or one layer's segment (evicted caches) at a time.
 """
 
 from __future__ import annotations
@@ -32,8 +32,8 @@ def quantize_int4(x: jax.Array, group_size: int = INT4_GROUP,
 
     pack="pairs": reference byte layout (element 2j in the high nibble,
     2j+1 low — `quantize_int4.cu:123-139`). pack="split": element j high,
-    j + D/2 low — nibble unpack becomes a concat instead of an interleave,
-    which is what Mosaic can vectorize; the cache uses this layout.
+    j + D/2 low — nibble unpack becomes a concat instead of an interleave;
+    the cache uses this layout.
     """
     *lead, D = x.shape
     g = min(group_size, D)
@@ -96,7 +96,7 @@ def quantize_act_int8(x: jax.Array) -> Tuple[jax.Array, jax.Array]:
 
 def int8_matmul(xq: jax.Array, xs: jax.Array, wq: jax.Array, ws: jax.Array,
                 bias=None, out_dtype=jnp.bfloat16) -> jax.Array:
-    """int8 x int8 -> int32 MXU matmul with pre-quantized activations."""
+    """int8 x int8 -> int32 matmul with pre-quantized activations."""
     acc = jax.lax.dot_general(xq, wq, (((1,), (0,)), ((), ())),
                               preferred_element_type=jnp.int32)
     out = acc.astype(jnp.float32) * xs * ws[None, :]
@@ -107,7 +107,7 @@ def int8_matmul(xq: jax.Array, xs: jax.Array, wq: jax.Array, ws: jax.Array,
 
 def int8_linear(x: jax.Array, wq: jax.Array, ws: jax.Array,
                 bias=None) -> jax.Array:
-    """Dynamic per-token activation quant + int8 MXU matmul.
+    """Dynamic per-token activation quant + int8 matmul.
 
     x (T, in) any float dtype; wq (in, out) int8; ws (out,) f32.
     """
@@ -120,9 +120,9 @@ def quantize_embed_int8(w: jax.Array, model_dtype=jnp.bfloat16) -> dict:
 
     Per-row (= per vocab entry) scales: exact per-channel semantics for the
     lm_head matmul (logits_v = s_v * (x . q_v)) and a cheap row-rescale for
-    embedding lookups. Halves the 2x ~1.1 GB bf16 tables of a 7B model —
-    needed to fit the 480k demo on one 16 GB chip. (The QServe reference
-    keeps these fp16; opt-in via Engine(embed_quant="int8").)
+    embedding lookups. Halves the 2x ~1.1 GB bf16 tables of a 7B model.
+    (The QServe reference keeps these fp16; opt-in via
+    Engine(embed_quant="int8").)
     """
     wf = w.astype(jnp.float32)
     amax = jnp.max(jnp.abs(wf), axis=-1)
@@ -143,8 +143,8 @@ def quantize_head_int4(head: jax.Array, model_dtype=jnp.bfloat16) -> dict:
     """lm_head table (V, D) -> W4A8 v2 storage (1-layer stack).
 
     Per-group-128 asymmetric int4 along D (the same geometry as the W4A8
-    projections): the 545 MB int8 head read of a 7B decode step (~0.85 ms
-    at the platform ceiling) drops to ~292 MB. CAUTION: logit noise does
+    projections): the 545 MB int8 head read of a 7B decode step drops to
+    ~292 MB. CAUTION: logit noise does
     NOT average out — per-weight int4 rounding is ~10% of a weight sigma,
     and signal and noise both grow as sqrt(D), leaving ~10% relative logit
     noise at any D (tests/test_quant.py measures it). That can flip argmax

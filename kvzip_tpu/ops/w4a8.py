@@ -1,45 +1,32 @@
-"""W4A8 linear: INT4 weights (per-group-128 asymmetric) in a Pallas kernel.
+"""W4A8 linear: INT4 weights (per-group-128 asymmetric) with per-token
+int8 activations.
 
 Beyond the reference's W8A8 stack (`model/quant_model/w8a8kv4_llama.py` keeps
 8-bit weights): 4-bit weights halve the decode-time weight read — the
-dominant HBM term of a single-stream decode step — at QServe-style per-group
-granularity (group of 128 input channels per output channel, asymmetric
-scale/zero, the same geometry as QServe's W4A8 checkpoints).
+dominant memory term of a single-stream decode step — at QServe-style
+per-group granularity (group of 128 input channels per output channel,
+asymmetric scale/zero, the same geometry as QServe's W4A8 checkpoints).
 
 Layout:
 
 - packed ``(INp, OUT//2)`` uint8, split packing along OUT: byte column j
   holds weight column j in the HIGH nibble and column j + OUT/2 in the LOW
-  nibble. INp pads the input dim so the group count is a multiple of the
-  kernel's groups-per-block (pad groups carry scale = zero = 0 and
-  contribute nothing).
-- scale/zero ``(Gp, OUT)`` f32 per (input-group, output-channel).
+  nibble, stored XOR 0x80. INp pads the input dim to a multiple of
+  ``MAX_GPB`` groups (pad groups carry scale = zero = 0 and contribute
+  nothing).
+- scale/zero ``(Gp, OUT)`` per (input-group, output-channel), bf16.
 
-Kernel design (measured on one v5e chip, tools/probe_w4a8.py):
-
-- activations quantize per token to s8 once outside; BOTH matmuls run
-  s8 x s8 -> s32 (2x MXU rate, and the byte operands need only 1 cheap u8
-  op each: ``b ^ 0x80`` = b - 128 as s8, ``b & 0xF`` = lo as s8 — the
-  wide-type unpack chain of v1 capped the kernel at 279 GB/s).
-- 16 groups (2048 input rows) per grid step: v1's one-group steps paid the
-  2-4 us/step Pallas floor 5000+ times per 28-layer decode step.
-- per group g: with b' = b - 128, q.b = q.b' + 128*sum(q), and
-  hi = (b + 128 - lo)/16 - 8 ... algebra folded as
-      n_hi . q = (q.b - q.lo)/16,  n_lo . q = q.lo
-  then ``out += xs * (concat(hi, lo) * s_g + sum(xq_g) * z_g)``.
+Compute is plain XLA: the weight is dequantised and multiplied
+(`ops.dispatch.w4a8_stacked` picks the form per platform).
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 GROUP = 128
-MAX_GPB = 16          # groups per grid step (2048 input rows)
+MAX_GPB = 16          # group padding multiple of the v1 storage
 
 
 def _pad_groups(n_groups: int) -> int:
@@ -50,8 +37,8 @@ def _pad_groups(n_groups: int) -> int:
 def quantize_weight_int4(w: jax.Array, group: int = GROUP) -> dict:
     """w (..., IN, OUT) -> {"q4": (..., INp, OUT//2) uint8, "s"/"z":
     (..., Gp, OUT) f32} — per-(input-group, output-channel) asymmetric
-    uint4, split-packed along OUT, padded to the kernel's group blocking
-    (pad groups have s = z = 0 and contribute nothing)."""
+    uint4, split-packed along OUT, padded to ``MAX_GPB`` groups (pad
+    groups have s = z = 0 and contribute nothing)."""
     *lead, IN, OUT = w.shape
     assert IN % group == 0 and OUT % 2 == 0
     G = IN // group
@@ -61,16 +48,14 @@ def quantize_weight_int4(w: jax.Array, group: int = GROUP) -> dict:
     mx = wf.max(axis=-2)
     s = (mx - mn) / 15.0 + 1e-8                      # (..., G, OUT)
     z = mn
-    # scales/zeros stored bf16 (re-rounded BEFORE quantizing q so the
-    # stored grid is exactly consistent): halves the ~0.87 GB f32 scale
-    # read of a 7B decode step; the kernel computes in f32 regardless
+    # scales/zeros stored bf16, re-rounded BEFORE quantizing q so the
+    # stored grid is exactly consistent
     s = s.astype(jnp.bfloat16).astype(jnp.float32)
     z = z.astype(jnp.bfloat16).astype(jnp.float32)
     q = jnp.clip(jnp.round((wf - z[..., None, :]) / s[..., None, :]), 0, 15)
     q = q.astype(jnp.uint8).reshape(*lead, IN, OUT)
     half = OUT // 2
-    # bytes stored PRE-BIASED (^ 0x80, i.e. b - 128 as s8): the kernel
-    # bitcasts them to s8 with ZERO unpack ops on the big array; the low
+    # bytes stored PRE-BIASED (^ 0x80, i.e. b - 128 as s8); the low
     # nibble is untouched by the bias (bit 7 is in the high nibble)
     packed = ((q[..., :half] << 4) | q[..., half:]) ^ 0x80
     lead_pad = [(0, 0)] * len(lead)
@@ -78,10 +63,7 @@ def quantize_weight_int4(w: jax.Array, group: int = GROUP) -> dict:
         packed = jnp.pad(packed, lead_pad + [(0, (Gp - G) * group), (0, 0)])
         s = jnp.pad(s, lead_pad + [(0, Gp - G), (0, 0)])
         z = jnp.pad(z, lead_pad + [(0, Gp - G), (0, 0)])
-    # stored bf16 (the values are exactly on the bf16 grid already): halves
-    # the ~0.87 GB scale read of a 7B decode step — 10.1 -> 8.2 ms measured.
-    # NOTE the kernel feeds these as 3D (1, gpb, OUT) blocks; a singleton
-    # sublane axis under bf16 costs a 3.5x Mosaic layout-conversion path
+    # stored bf16: the values are exactly on the bf16 grid already
     return {"q4": packed, "s": s.astype(jnp.bfloat16),
             "z": z.astype(jnp.bfloat16)}
 
@@ -101,273 +83,12 @@ def dequantize_weight_int4(wq: dict, dtype=jnp.bfloat16) -> jax.Array:
     return x.reshape(*lead, INp, 2 * half).astype(dtype)
 
 
-def _w4a8_kernel(xq_ref, xs_ref, wq_ref, s_ref, z_ref, o_ref, acc_scr,
-                 *, gpb: int, dtype):
-    gb = pl.program_id(1)
-    nb = pl.num_programs(1)
-    T, BKIN = xq_ref.shape
-    half = wq_ref.shape[1]
-
-    @pl.when(gb == 0)
-    def _():
-        acc_scr[...] = jnp.zeros_like(acc_scr)
-
-    wb = wq_ref[...]
-    b8 = jax.lax.bitcast_convert_type(wb, jnp.int8)   # stored = b - 128
-    lo8 = jax.lax.bitcast_convert_type(wb & 0xF, jnp.int8)
-
-    acc = jnp.zeros(acc_scr.shape, jnp.float32)
-    for g in range(gpb):
-        sl = slice(g * GROUP, (g + 1) * GROUP)
-        xg = xq_ref[:, sl]                                   # (T, 128) s8
-        xg_sum = jnp.sum(xg.astype(jnp.float32), axis=1, keepdims=True)
-        m1 = jax.lax.dot_general(xg, b8[sl], (((1,), (0,)), ((), ())),
-                                 preferred_element_type=jnp.int32)
-        m2 = jax.lax.dot_general(xg, lo8[sl], (((1,), (0,)), ((), ())),
-                                 preferred_element_type=jnp.int32)
-        qb = m1.astype(jnp.float32) + 128.0 * xg_sum         # xq_g . bytes
-        qn = jnp.concatenate(
-            [(qb - m2.astype(jnp.float32)) * (1.0 / 16.0),
-             m2.astype(jnp.float32)], axis=1)                # (T, OUT)
-        acc += qn * s_ref[g, 0] + xg_sum * z_ref[g, 0]
-    acc_scr[...] += acc
-
-    @pl.when(gb == nb - 1)
-    def _():
-        o_ref[...] = (acc_scr[...] * xs_ref[...]).astype(dtype)
-
-
-@functools.partial(jax.jit, static_argnames=("block_t", "interpret"))
-def w4a8_matmul(x: jax.Array, wq4: jax.Array, ws: jax.Array, wz: jax.Array,
-                bias=None, *, block_t: int = 256,
-                interpret: bool = False) -> jax.Array:
-    """x (T, IN) x int4-packed weights -> (T, OUT) in x.dtype.
-
-    wq4 (INp, OUT//2) uint8 split-packed; ws/wz (Gp, OUT) f32 (from
-    :func:`quantize_weight_int4`). Activations are quantized per token to
-    s8 (QServe A8 semantics).
-    """
-    from kvzip_tpu.ops.quant import quantize_act_int8
-
-    T, IN = x.shape
-    INp, half = wq4.shape
-    OUT = 2 * half
-    Gp = ws.shape[0]
-    gpb = min(MAX_GPB, Gp)
-    assert Gp % gpb == 0
-    BT = min(block_t, max(8, T))
-    Tp = -(-T // BT) * BT
-
-    xq, xs = quantize_act_int8(x)
-    if INp != IN:
-        xq = jnp.pad(xq, ((0, 0), (0, INp - IN)))
-    if Tp != T:
-        xq = jnp.pad(xq, ((0, Tp - T), (0, 0)))
-        xs = jnp.pad(xs, ((0, Tp - T), (0, 0)))
-
-    grid = (Tp // BT, Gp // gpb)
-    out = pl.pallas_call(
-        functools.partial(_w4a8_kernel, gpb=gpb, dtype=x.dtype),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((BT, gpb * GROUP), lambda tb, gb: (tb, gb)),
-            pl.BlockSpec((BT, 1), lambda tb, gb: (tb, 0)),
-            pl.BlockSpec((gpb * GROUP, half), lambda tb, gb: (gb, 0)),
-            # scales: singleton middle axis (Mosaic block-shape rule)
-            pl.BlockSpec((gpb, 1, OUT), lambda tb, gb: (gb, 0, 0)),
-            pl.BlockSpec((gpb, 1, OUT), lambda tb, gb: (gb, 0, 0)),
-        ],
-        out_specs=pl.BlockSpec((BT, OUT), lambda tb, gb: (tb, 0)),
-        out_shape=jax.ShapeDtypeStruct((Tp, OUT), x.dtype),
-        scratch_shapes=[pltpu.VMEM((BT, OUT), jnp.float32)],
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 2 ** 20,
-            dimension_semantics=("parallel", "arbitrary")),
-        interpret=interpret,
-    )(xq, xs.astype(jnp.float32), wq4, ws[:, None], wz[:, None])
-    out = out[:T]
-    if bias is not None:
-        out = out + bias
-    return out
-
-
-def w4a8_linear(x: jax.Array, w: dict, bias=None) -> jax.Array:
-    """Linear over a {"q4","s","z"} int4 weight dict (jnp fallback off-TPU,
-    Pallas kernel on TPU)."""
-    if jax.default_backend() == "cpu":
-        return _w4a8_jnp(x, w, bias)
-    return w4a8_matmul(x, w["q4"], w["s"], w["z"], bias)
-
-
-# --------------------------------------------------------- stacked (scan) path
-#
-# Decode runs the layer stack as ONE lax.scan; a scanned Pallas operand is
-# materialized per iteration (dynamic-slice of the (L, ...) stack into a fresh
-# buffer), so the v1 per-layer kernel paid copy-write + copy-read + kernel-read
-# = ~3x the int4 weight bytes every decode step — measured 12.8 ms/step at 7B
-# vs 9.98 for W8A8 whose plain dot XLA reads in place (NOTES r2). The stacked
-# kernels below take the FULL (L, ...) weight stacks + the layer index as a
-# scalar-prefetch argument; the Pallas index maps select the layer block, so
-# nothing is copied (same fix as ops/flat_decode.py grid design). qkv and
-# gate/up are additionally fused into single launches at the parameter level
-# (see fuse_w4a8_params) — 4 launches per layer instead of 7, one shared
-# activation quantization each (the role of the reference's fused quantizing
-# RMSNorm / SiluAndMulQuant, `model/quant_model/w8a8kv4_llama.py:126-163`).
-
-
-def _pick_bt_gpb(t_rows: int, Gp: int, half: int, out: int,
-                 budget: int = 60 * 2 ** 20):
-    """(token-block, groups-per-block) under a VMEM budget.
-
-    The v1 kernel's fixed BT=256/gpb=16 allocated 118 MB of scoped VMEM on
-    the (16384, 18944) gate/up prefill shape — over Mosaic's limit. Budget
-    terms: double-buffered weight block, f32 accumulator, (buffered) output
-    block, activation block, scale/zero blocks. Prefers few, LARGE group
-    blocks: at decode shapes the ~2-4 us per-grid-step floor is the
-    dominant non-bandwidth cost (NOTES r2)."""
-    for bt in (256, 128, 64, 32, 16, 8):
-        if bt > max(8, t_rows) and bt != 8:
-            continue
-        # >16-group candidates only when the weight block stays small:
-        # big blocks (e.g. 77 MB double-buffered on gate/up) leave a 2-step
-        # grid that cannot pipeline DMA against compute — measured 3.5x
-        # SLOWER than 16-group blocks at decode shapes. Small-half matrices
-        # (down/o/qkv) benefit: fewer grid steps against the 2-4 us floor.
-        for gpb in (64, 32, 16, 8, 4, 2, 1):
-            if Gp % gpb:
-                continue
-            # Mosaic block rule: the second-to-last block dim of the 3D
-            # scale blocks (1, gpb, OUT) must be divisible by 8 or equal
-            # the overall array dim (hit at the ladder's 256-token chunks)
-            if gpb % 8 and gpb != Gp:
-                continue
-            if gpb > 16 and gpb * GROUP * half > 10 * 2 ** 20:
-                continue
-            need = (2 * gpb * GROUP * half      # u8 weight block x2
-                    + 4 * bt * out              # f32 accumulator scratch
-                    + 2 * 2 * bt * out          # out block x2
-                    + 2 * bt * gpb * GROUP      # s8 activations x2
-                    + 4 * 2 * gpb * out)        # bf16 scale/zero blocks x2
-            if need <= budget:
-                return bt, gpb
-    return 8, (8 if Gp % 8 == 0 else Gp)
-
-
-def _w4a8_stacked_kernel(m_ref, xq_ref, xs_ref, wq_ref, s_ref, z_ref, o_ref,
-                         hi_scr, lo_scr, *, gpb: int, dtype):
-    """Two (BT, half) slab accumulators (hi-nibble cols / lo-nibble cols):
-    no per-group concat — the hi/lo halves only meet at the final slab
-    writes into the output ref."""
-    del m_ref  # layer index is consumed by the index maps only
-    gb = pl.program_id(1)
-    nb = pl.num_programs(1)
-    half = hi_scr.shape[1]
-
-    @pl.when(gb == 0)
-    def _():
-        hi_scr[...] = jnp.zeros_like(hi_scr)
-        lo_scr[...] = jnp.zeros_like(lo_scr)
-
-    wb = wq_ref[0]                                       # (gpb*GROUP, half)
-    b8 = jax.lax.bitcast_convert_type(wb, jnp.int8)      # stored = b - 128
-    lo8 = jax.lax.bitcast_convert_type(wb & 0xF, jnp.int8)
-
-    acc_hi = jnp.zeros(hi_scr.shape, jnp.float32)
-    acc_lo = jnp.zeros(lo_scr.shape, jnp.float32)
-    for g in range(gpb):
-        sl = slice(g * GROUP, (g + 1) * GROUP)
-        xg = xq_ref[:, sl]                               # (BT, 128) s8
-        xg_sum = jnp.sum(xg.astype(jnp.float32), axis=1, keepdims=True)
-        m1 = jax.lax.dot_general(xg, b8[sl], (((1,), (0,)), ((), ())),
-                                 preferred_element_type=jnp.int32)
-        m2 = jax.lax.dot_general(xg, lo8[sl], (((1,), (0,)), ((), ())),
-                                 preferred_element_type=jnp.int32)
-        m2f = m2.astype(jnp.float32)
-        qb = m1.astype(jnp.float32) + 128.0 * xg_sum
-        s_row = s_ref[0, g].astype(jnp.float32)          # (OUT,)
-        z_row = z_ref[0, g].astype(jnp.float32)
-        acc_hi += ((qb - m2f) * (1.0 / 16.0)) * s_row[:half] \
-            + xg_sum * z_row[:half]
-        acc_lo += m2f * s_row[half:] + xg_sum * z_row[half:]
-    hi_scr[...] += acc_hi
-    lo_scr[...] += acc_lo
-
-    @pl.when(gb == nb - 1)
-    def _():
-        xs = xs_ref[...]
-        o_ref[:, :half] = (hi_scr[...] * xs).astype(dtype)
-        o_ref[:, half:] = (lo_scr[...] * xs).astype(dtype)
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def w4a8_matmul_stacked(x: jax.Array, wq4: jax.Array, ws: jax.Array,
-                        wz: jax.Array, layer: jax.Array, *,
-                        interpret: bool = False) -> jax.Array:
-    """x (T, IN) x layer ``layer`` of int4-packed weight stacks -> (T, OUT).
-
-    wq4 (L, INp, OUT//2) uint8, ws/wz (L, Gp, OUT) f32 — the FULL stacks;
-    the scalar-prefetched layer index selects the block, so calling this
-    inside a scan reads only that layer's bytes (no materialized slice).
-    """
-    from kvzip_tpu.ops.quant import quantize_act_int8
-
-    T, IN = x.shape
-    _, INp, half = wq4.shape
-    OUT = 2 * half
-    Gp = ws.shape[1]
-    BT, gpb = _pick_bt_gpb(T, Gp, half, OUT)
-    Tp = -(-max(T, BT) // BT) * BT
-
-    xq, xs = quantize_act_int8(x)
-    if INp != IN:
-        xq = jnp.pad(xq, ((0, 0), (0, INp - IN)))
-    if Tp != T:
-        xq = jnp.pad(xq, ((0, Tp - T), (0, 0)))
-        xs = jnp.pad(xs, ((0, Tp - T), (0, 0)))
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(Tp // BT, Gp // gpb),
-        in_specs=[
-            pl.BlockSpec((BT, gpb * GROUP), lambda tb, gb, m: (tb, gb)),
-            pl.BlockSpec((BT, 1), lambda tb, gb, m: (tb, 0)),
-            pl.BlockSpec((1, gpb * GROUP, half),
-                         lambda tb, gb, m: (m[0], gb, 0)),
-            # 3D (1, gpb, OUT) blocks: a singleton sublane axis (or bf16
-            # scales under one) hits a Mosaic layout-conversion slow path
-            # measured 3.5x the whole kernel
-            pl.BlockSpec((1, gpb, OUT), lambda tb, gb, m: (m[0], gb, 0)),
-            pl.BlockSpec((1, gpb, OUT), lambda tb, gb, m: (m[0], gb, 0)),
-        ],
-        out_specs=pl.BlockSpec((BT, OUT), lambda tb, gb, m: (tb, 0)),
-        scratch_shapes=[pltpu.VMEM((BT, half), jnp.float32),
-                        pltpu.VMEM((BT, half), jnp.float32)],
-    )
-    out = pl.pallas_call(
-        functools.partial(_w4a8_stacked_kernel, gpb=gpb, dtype=x.dtype),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((Tp, OUT), x.dtype),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=112 * 2 ** 20,
-            dimension_semantics=("parallel", "arbitrary")),
-        interpret=interpret,
-    )(jnp.asarray(layer, jnp.int32).reshape(1), xq, xs.astype(jnp.float32),
-      wq4, ws, wz)
-    return out[:T]
-
-
-# above this many query rows the fused-dequant kernel goes VPU-bound (its
-# scale/zero epilogue is O(T x OUT) PER GROUP); dequantizing the layer once
-# to bf16 and taking a single MXU matmul is ~1.7x faster at prefill shapes
-DEQUANT_T = 512
-
-
-def _w4a8_dequant_matmul(x: jax.Array, w: dict, layer: jax.Array,
+def w4a8_dequant_matmul(x: jax.Array, w: dict, layer: jax.Array,
                          bias=None) -> jax.Array:
-    """Prefill-shape route: dequantize ONE layer to bf16 (O(IN x OUT), paid
-    once, amortized over T rows) + a plain MXU matmul. Activations still
-    round through s8 (A8 semantics preserved); the bf16 weight expansion
-    adds ~0.4% rounding on top of the int4 grid — far below the int4 error."""
+    """Layer ``layer`` of stacked W4A8 weights: dequantise it to bf16 and
+    take one bf16 GEMM with float32 accumulation. Activations still round
+    through s8 (A8 semantics); the bf16 weight expansion adds ~0.4%
+    rounding on top of the int4 grid — far below the int4 error."""
     from kvzip_tpu.ops.quant import quantize_act_int8
 
     wl = {k: jax.lax.dynamic_index_in_dim(v, layer, 0, keepdims=False)
@@ -388,31 +109,29 @@ def _w4a8_dequant_matmul(x: jax.Array, w: dict, layer: jax.Array,
     return y if bias is None else y + bias
 
 
+def w4a8_jnp_stacked(x: jax.Array, w: dict, layer: jax.Array,
+                     bias=None) -> jax.Array:
+    """Layer ``layer`` of stacked W4A8 weights through the float32
+    expansion (:func:`_w4a8_jnp` / `w4a8_v2.w4a8_jnp_v2`)."""
+    wl = {k: jax.lax.dynamic_index_in_dim(v, layer, 0, keepdims=False)
+          for k, v in w.items()}
+    if "s2" in wl:
+        from kvzip_tpu.ops.w4a8_v2 import w4a8_jnp_v2
+        return w4a8_jnp_v2(x, wl, bias)
+    return _w4a8_jnp(x, wl, bias)
+
+
 def w4a8_linear_stacked(x: jax.Array, w: dict, layer: jax.Array,
                         bias=None) -> jax.Array:
-    """Stacked-layer W4A8 linear: w holds (L, ...) stacks, ``layer`` selects.
+    """Stacked-layer W4A8 linear: w holds (L, ...) stacks (v1 ``{"q4", "s",
+    "z"}`` or v2 ``{"q4", "s2", "z2"}`` storage), ``layer`` selects."""
+    from kvzip_tpu.ops import dispatch
+    return dispatch.w4a8_stacked(dispatch.platform())(x, w, layer, bias)
 
-    Decode/small-T goes through the fused Pallas kernel (weight-read bound);
-    prefill/scoring shapes take the dequant-then-matmul route (MXU bound).
-    CPU fallback dequantizes just that layer (tests / interpret lanes).
-    v2 storage ({"q4","s2","z2"}: trimmed bytes + pre-folded scales, see
-    ops/w4a8_v2.py) routes to the column-blocked v2 kernel."""
-    is_v2 = "s2" in w
-    if jax.default_backend() == "cpu":
-        wl = {k: jax.lax.dynamic_index_in_dim(v, layer, 0, keepdims=False)
-              for k, v in w.items()}
-        if is_v2:
-            from kvzip_tpu.ops.w4a8_v2 import w4a8_jnp_v2
-            return w4a8_jnp_v2(x, wl, bias)
-        return _w4a8_jnp(x, wl, bias)
-    if x.shape[0] >= DEQUANT_T:
-        return _w4a8_dequant_matmul(x, w, layer, bias)
-    if is_v2:
-        from kvzip_tpu.ops.w4a8_v2 import w4a8_matmul_stacked_v2
-        y = w4a8_matmul_stacked_v2(x, w["q4"], w["s2"], w["z2"], layer)
-    else:
-        y = w4a8_matmul_stacked(x, w["q4"], w["s"], w["z"], layer)
-    return y if bias is None else y + bias
+
+def w4a8_linear(x: jax.Array, w: dict, bias=None) -> jax.Array:
+    """Linear over one layer's {"q4","s","z"} int4 weight dict."""
+    return _w4a8_jnp(x, w, bias)
 
 
 def _unpack_nibbles(packed: jax.Array) -> jax.Array:
@@ -425,7 +144,7 @@ def fuse_w4a8(ws: list) -> dict:
     """Concatenate several int4 weight dicts along OUT into one (exactly:
     per-(group, out-column) scales make column-concat lossless). Repacks at
     the nibble level so the fused byte layout is canonical split packing —
-    the fused kernel output is the plain [w0 | w1 | ...] column order."""
+    the fused output is the plain [w0 | w1 | ...] column order."""
     q = jnp.concatenate([_unpack_nibbles(w["q4"]) for w in ws], axis=-1)
     half = q.shape[-1] // 2
     packed = ((q[..., :half] << 4) | q[..., half:]) ^ 0x80
@@ -436,7 +155,7 @@ def fuse_w4a8(ws: list) -> dict:
 
 def fuse_w4a8_params(layers: dict, chunk_layers: int = 4) -> dict:
     """Fuse wq/wk/wv -> wqkv and w_gate/w_up -> w_gateup in a stacked W4A8
-    layer dict (single kernel launches + one shared activation quant each).
+    layer dict (one GEMM and one shared activation quant each).
 
     Processed in layer chunks: the nibble-unpacked transient of a 7B gate/up
     stack is ~3.8 GB — chunking bounds it to ~chunk_layers/L of that.
@@ -470,8 +189,8 @@ def fuse_w4a8_params(layers: dict, chunk_layers: int = 4) -> dict:
 
 
 def _w4a8_jnp(x: jax.Array, w: dict, bias=None) -> jax.Array:
-    """Dequantized-matmul fallback: same A8 activation rounding as the
-    kernel, bf16/f32 weight expansion (CPU tests)."""
+    """Dequantized matmul: per-token s8 activation rounding (A8), float32
+    weight expansion."""
     from kvzip_tpu.ops.quant import quantize_act_int8
 
     xq, xs = quantize_act_int8(x)

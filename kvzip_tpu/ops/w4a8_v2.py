@@ -1,42 +1,22 @@
-"""W4A8 stacked linear, v2: column-blocked grid for full DMA pipelining.
+"""W4A8 v2 storage: split-packed int4 bytes trimmed to the true input dim,
+scales/zeros split by nibble half and pre-folded.
 
-The v1 stacked kernel (`ops/w4a8.py::w4a8_matmul_stacked`) blocks only the
-GROUP (reduction) axis, so at 7B decode shapes its grids have 1-2 steps per
-matrix (qkv: 1, gate/up: 2, o: 1) — a double-buffered pipeline with one or
-two steps cannot overlap DMA with compute, and the whole chain measured
-438-477 GB/s against the same chip's 600-732 GB/s int8 weight reads
-(VERDICT r4 weak #1: ~2.5 ms of a 28-layer decode step on the table).
+- bytes ``q4 (L, IN, OUT//2)``: the v1 split packing (`ops/w4a8.py`) with
+  the group padding rows trimmed;
+- scales/zeros ``s2/z2 (L, 2, Gp8, OUT//2)``: ``[:, 0]`` scales the
+  high-nibble columns and ``[:, 1]`` the low ones, with the hi scale
+  stored as s/16 and the hi zero as z + 8 s (the nibble shift and the
+  stored bytes' +128 bias folded in). Group rows pad to a multiple of 8
+  with s = z = 0.
 
-v2 adds an OUTPUT-COLUMN grid axis:
-
-- grid ``(T blocks, column blocks, group blocks)`` — column x group tiling
-  yields 4-20 grid steps per matrix with ~2-5 MB weight blocks, enough for
-  Mosaic's double buffering to stream HBM at full rate;
-- the split-packed byte block ``(gpb*GROUP, HB)`` covers output columns
-  ``[ob*HB, ob*HB+HB)`` (high nibbles) and ``[half + ob*HB, ...)`` (low
-  nibbles), so the kernel writes TWO outputs (hi-half, lo-half) that the
-  caller concatenates — the same slab trick as v1, now per column block;
-- scales/zeros are stored pre-split by nibble half: ``(L, 2, Gp, half)``
-  with ``[:, 0]`` scaling the hi columns and ``[:, 1]`` the lo columns, so
-  one BlockSpec per operand addresses the column block directly (the v1
-  ``(Gp, OUT)`` layout cannot express a column block starting at ``half``
-  when ``half % HB != 0``);
-- the column edge (``half % HB``) is handled by Pallas block masking —
-  garbage stays in its own output columns and is sliced off.
-
-Reference anchor: this replaces the qserve W8A8 GEMM family
-(`model/quant_model/w8a8kv4_llama.py:165-321`) at half the weight bytes.
-Chain measured on one v5e chip: see tools/probe_w4a8_v2.py.
+Loaders (`models/params.py`) write this layout; `w4a8_jnp_v2` computes
+with it.
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from kvzip_tpu.ops.w4a8 import GROUP
 
@@ -44,21 +24,17 @@ from kvzip_tpu.ops.w4a8 import GROUP
 def repack_scales_v2(w: dict, in_dim: int = 0) -> dict:
     """{"q4","s","z"} (v1 stacked storage) -> {"q4","s2","z2"} with
     scales/zeros split by nibble half ((L, Gp, OUT) -> (L, 2, Gp8, half))
-    and PRE-FOLDED for the kernel's minimal inner loop:
+    and PRE-FOLDED:
 
-    - hi scale stored as s_hi/16 (exact in bf16: exponent shift) — the /16
-      of the nibble extraction moves out of the loop;
+    - hi scale stored as s_hi/16 (exact in bf16: exponent shift);
     - hi zero stored as z_hi + 8*s_hi — folds the +128 bias of the stored
       s8 bytes (b' = B - 128, so q·B = m1 + 128*Σq and the whole Σq term
       collapses into the zero-point dot). bf16 re-round adds ≤ 2^-9 |z|,
       far below the int4 grid itself;
     - when ``in_dim`` is given, the BYTE rows are trimmed to exactly
-      in_dim (v1 pads groups to MAX_GPB multiples — 12% of a 7B chain's
-      weight HBM read was padding). Mosaic's block-divisibility rule only
-      binds the SCALE blocks, so scales keep zero-padding to a multiple
-      of 8 (Gp8) while the edge byte/activation blocks rely on Pallas
-      edge masking: their garbage rows meet s = z = 0 and contribute
-      exactly nothing.
+      in_dim (v1 pads groups to MAX_GPB multiples); scales keep
+      zero-padding to a multiple of 8 groups (Gp8), whose s = z = 0 rows
+      contribute nothing.
     """
     L, Gp, OUT = w["s"].shape
     half = OUT // 2
@@ -104,11 +80,8 @@ def dequantize_weight_int4_v2(w: dict, dtype=jnp.bfloat16) -> jax.Array:
     """Reference expansion of ONE layer's v2 dict slice {"q4": (IN, half),
     "s2"/"z2": (2, Gp8, half)} -> (IN, OUT).
 
-    Consistent with the kernel's effective arithmetic: the kernel applies
-    the PRIMED scales (s_hi/16, z_hi + 8 s_hi as stored, bf16-rounded), so
-    the expansion un-primes in f32 from the stored values rather than from
-    the original quantization grid — both routes then agree to f32
-    rounding."""
+    Un-primes in f32 from the stored (bf16-rounded) values rather than
+    from the original quantization grid."""
     packed = w["q4"]
     IN, half = packed.shape
     G = IN // GROUP
@@ -126,143 +99,11 @@ def dequantize_weight_int4_v2(w: dict, dtype=jnp.bfloat16) -> jax.Array:
 
 
 def w4a8_jnp_v2(x: jax.Array, w: dict, bias=None) -> jax.Array:
-    """CPU/test fallback for a single-layer v2 dict slice: same A8
-    activation rounding as the kernel, f32 weight expansion."""
+    """Linear over a single-layer v2 dict slice: per-token s8 activation
+    rounding (A8), float32 weight expansion."""
     from kvzip_tpu.ops.quant import quantize_act_int8
 
     xq, xs = quantize_act_int8(x)
     deq = dequantize_weight_int4_v2(w, jnp.float32)
     y = ((xq.astype(jnp.float32) * xs) @ deq).astype(x.dtype)
     return y if bias is None else y + bias
-
-
-def _w4a8_v2_kernel(m_ref, xq_ref, xs_ref, wq_ref, sh_ref, sl_ref,
-                    zh_ref, zl_ref, ohi_ref, olo_ref, hi_scr, lo_scr,
-                    *, gpb: int, dtype):
-    del m_ref  # layer index is consumed by the index maps only
-    gb = pl.program_id(2)
-    ngb = pl.num_programs(2)
-
-    @pl.when(gb == 0)
-    def _():
-        hi_scr[...] = jnp.zeros_like(hi_scr)
-        lo_scr[...] = jnp.zeros_like(lo_scr)
-
-    wb = wq_ref[0]                                   # (gpb*GROUP, HB)
-    b8 = jax.lax.bitcast_convert_type(wb, jnp.int8)  # stored = b - 128
-    lo8 = jax.lax.bitcast_convert_type(wb & 0xF, jnp.int8)
-
-    BT = xq_ref.shape[0]
-    # zero-point terms hoisted out of the group loop: one (BT, gpb) x
-    # (gpb, HB) dot each — the +128 byte bias is pre-folded into zh by
-    # repack_scales_v2, so the loop below never touches activation sums
-    xsums = jnp.sum(
-        xq_ref[...].reshape(BT, gpb, GROUP).astype(jnp.float32), axis=2)
-    acc_hi = jax.lax.dot_general(
-        xsums, zh_ref[0, 0].astype(jnp.float32), (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32)
-    acc_lo = jax.lax.dot_general(
-        xsums, zl_ref[0, 0].astype(jnp.float32), (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32)
-    for g in range(gpb):
-        sl = slice(g * GROUP, (g + 1) * GROUP)
-        xg = xq_ref[:, sl]                           # (BT, 128) s8
-        m1 = jax.lax.dot_general(xg, b8[sl], (((1,), (0,)), ((), ())),
-                                 preferred_element_type=jnp.int32)
-        m2 = jax.lax.dot_general(xg, lo8[sl], (((1,), (0,)), ((), ())),
-                                 preferred_element_type=jnp.int32)
-        # sh is s_hi/16 pre-folded: hi contribution = (q·B - q·lo)/16 · s_hi
-        acc_hi += (m1 - m2).astype(jnp.float32) \
-            * sh_ref[0, 0, g].astype(jnp.float32)
-        acc_lo += m2.astype(jnp.float32) * sl_ref[0, 0, g].astype(jnp.float32)
-    hi_scr[...] += acc_hi
-    lo_scr[...] += acc_lo
-
-    @pl.when(gb == ngb - 1)
-    def _():
-        xs = xs_ref[...]
-        ohi_ref[...] = (hi_scr[...] * xs).astype(dtype)
-        olo_ref[...] = (lo_scr[...] * xs).astype(dtype)
-
-
-def _pick_hb(half: int, gpb: int, target_mb: float = 4.0) -> int:
-    """Column-block width: ~target_mb byte blocks, multiple of 128, capped
-    at the (padded) half width."""
-    rows = gpb * GROUP
-    hb = int(target_mb * 2 ** 20 / rows) // 128 * 128
-    hb = max(512, min(hb, 4096))
-    return min(hb, -(-half // 128) * 128)
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("hb", "gpb", "interpret"))
-def w4a8_matmul_stacked_v2(x: jax.Array, wq4: jax.Array, s2: jax.Array,
-                           z2: jax.Array, layer: jax.Array, *,
-                           hb: int = 0, gpb: int = 0,
-                           interpret: bool = False) -> jax.Array:
-    """x (T, IN) x layer ``layer`` of int4-packed weight stacks -> (T, OUT).
-
-    wq4 (L, INp, half) uint8 split-packed (v1 layout); s2/z2 (L, 2, Gp,
-    half) from :func:`repack_scales_v2`. hb/gpb override the block policy
-    (0 = auto).
-    """
-    from kvzip_tpu.ops.quant import quantize_act_int8
-
-    T, IN = x.shape
-    L, INp, half = wq4.shape
-    Gp = s2.shape[2]  # may exceed INp/GROUP: zero-padded scales + Pallas
-    #                   edge masking on the byte/activation blocks
-    if not gpb:
-        gpb = 8 if Gp % 8 == 0 else Gp
-    assert Gp % gpb == 0, (Gp, gpb)
-    assert Gp * GROUP >= INp >= IN, (Gp, INp, IN)
-    if not hb:
-        hb = _pick_hb(half, gpb)
-    BT = min(256, max(8, T))
-    Tp = -(-T // BT) * BT
-    nob = -(-half // hb)
-    ngb = Gp // gpb
-
-    xq, xs = quantize_act_int8(x)
-    if INp != IN:
-        xq = jnp.pad(xq, ((0, 0), (0, INp - IN)))
-    if Tp != T:
-        xq = jnp.pad(xq, ((0, Tp - T), (0, 0)))
-        xs = jnp.pad(xs, ((0, Tp - T), (0, 0)))
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(Tp // BT, nob, ngb),
-        in_specs=[
-            pl.BlockSpec((BT, gpb * GROUP), lambda tb, ob, gb, m: (tb, gb)),
-            pl.BlockSpec((BT, 1), lambda tb, ob, gb, m: (tb, 0)),
-            pl.BlockSpec((1, gpb * GROUP, hb),
-                         lambda tb, ob, gb, m: (m[0], gb, ob)),
-            pl.BlockSpec((1, 1, gpb, hb),
-                         lambda tb, ob, gb, m: (m[0], 0, gb, ob)),
-            pl.BlockSpec((1, 1, gpb, hb),
-                         lambda tb, ob, gb, m: (m[0], 1, gb, ob)),
-            pl.BlockSpec((1, 1, gpb, hb),
-                         lambda tb, ob, gb, m: (m[0], 0, gb, ob)),
-            pl.BlockSpec((1, 1, gpb, hb),
-                         lambda tb, ob, gb, m: (m[0], 1, gb, ob)),
-        ],
-        out_specs=[
-            pl.BlockSpec((BT, hb), lambda tb, ob, gb, m: (tb, ob)),
-            pl.BlockSpec((BT, hb), lambda tb, ob, gb, m: (tb, ob)),
-        ],
-        scratch_shapes=[pltpu.VMEM((BT, hb), jnp.float32),
-                        pltpu.VMEM((BT, hb), jnp.float32)],
-    )
-    o_hi, o_lo = pl.pallas_call(
-        functools.partial(_w4a8_v2_kernel, gpb=gpb, dtype=x.dtype),
-        grid_spec=grid_spec,
-        out_shape=[jax.ShapeDtypeStruct((Tp, half), x.dtype),
-                   jax.ShapeDtypeStruct((Tp, half), x.dtype)],
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=112 * 2 ** 20,
-            dimension_semantics=("parallel", "parallel", "arbitrary")),
-        interpret=interpret,
-    )(jnp.asarray(layer, jnp.int32).reshape(1), xq, xs.astype(jnp.float32),
-      wq4, s2, s2, z2, z2)
-    return jnp.concatenate([o_hi, o_lo], axis=1)[:T]

@@ -2,10 +2,12 @@
 
 The reference has no distributed execution (SURVEY.md §2b — its only
 multi-GPU mechanism is accelerate ``device_map="auto"`` layer placement,
-`model/load.py:60`). Here parallelism is first-class and TPU-native:
+`model/load.py:60`). Here parallelism is first-class:
 
-- mesh axes ``("data", "model")`` over ICI; ``model`` = tensor parallelism
-  over attention heads (Megatron-style), ``data`` = batch/continuous batching.
+- mesh axes ``("data", "model")`` over the cards of one host (four H100s
+  reach each other all to all over NVLink, so the mesh follows the
+  algorithm alone); ``model`` = tensor parallelism over attention heads
+  (Megatron-style), ``data`` = batch/continuous batching.
 - KV caches are sharded over the kv-head axis — which composes naturally with
   KVzip's per-head ragged eviction: each shard's lengths/scores/compaction are
   fully shard-local, so *eviction requires no collectives* beyond the global
@@ -29,20 +31,19 @@ from kvzip_tpu.config import ModelConfig
 def make_mesh(n_devices: Optional[int] = None, tp: Optional[int] = None,
               devices=None, replicas: int = 1) -> Mesh:
     """Build a ("data", "model") mesh — or ("replica", "data", "model") when
-    ``replicas`` > 1 (the multi-slice / DCN layout).
+    ``replicas`` > 1 (independent device groups).
 
     tp defaults to all devices (pure tensor parallelism); pass tp < n to get
     a data axis for batch parallelism.
 
-    ``replicas`` maps TPU *slices* connected over DCN: the replica axis is
-    the mesh's MAJOR (slowest-varying) axis, so with the standard device
-    enumeration (slice-major) each replica lands on one slice and only the
-    replica axis ever crosses DCN. Every param/cache PartitionSpec in this
-    module omits "replica", which makes weights and caches fully replicated
-    per slice — the DCN link carries *no tensor traffic on the serving hot
-    path* (batches shard over ("replica", "data"); the only cross-slice
-    collective is a request-level batch split). This matches the scaling-book
-    recipe: model/tensor axes ride ICI, pure data parallelism rides DCN.
+    ``replicas`` splits the devices into independent groups (e.g. one per
+    host): the replica axis is the mesh's MAJOR (slowest-varying) axis, so
+    with the standard device enumeration each replica is a contiguous
+    device group. Every param/cache PartitionSpec in this module omits
+    "replica", which makes weights and caches fully replicated per replica
+    — the link between replicas carries *no tensor traffic on the serving
+    hot path* (batches shard over ("replica", "data"); the only
+    cross-replica collective is a request-level batch split).
     """
     devices = devices if devices is not None else jax.devices()
     n = n_devices or len(devices)
@@ -189,7 +190,7 @@ def shard_cache(mesh: Mesh, cache):
 
 def batch_axes(mesh: Mesh) -> tuple:
     """Mesh axes a batch dimension shards over: ("replica", "data") on a
-    multi-slice mesh (DP across DCN slices AND across each slice's data
+    replicated mesh (DP across replicas AND across each replica's data
     axis), plain ("data",) otherwise."""
     return (("replica", "data") if "replica" in mesh.axis_names
             else ("data",))

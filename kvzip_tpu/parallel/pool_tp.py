@@ -1,8 +1,7 @@
 """Tensor-parallel POOL decode: per-shard pools over local kv heads.
 
-VERDICT r4 missing #3 / SURVEY §2b: the POOL layout (the flagship decode
-path, `kvzip_tpu/pool.py`) was single-device — `engine._use_flat` gated it
-off under any mesh, so TP decode fell back to the dense-compact path.
+SURVEY §2b: the POOL layout (the flagship decode path,
+`kvzip_tpu/pool.py`) under tensor parallelism.
 
 Design (the composition SURVEY §2b predicts): eviction and compaction are
 already shard-local when KV is head-sharded, so each "model"-axis shard
@@ -14,9 +13,9 @@ gets its OWN pool over its local heads:
   owns columns ``[s*P_s, (s+1)*P_s)``;
 - ``layer_off``/``layer_rows`` become ``(tp, L)`` (per-shard geometry,
   sharded over the shard axis); ``row_head`` holds LOCAL head ids, so the
-  kernel's ``row_head == local_q_head`` match needs no translation;
+  decode's ``row_head == local_q_head`` match needs no translation;
 - attention runs under ``shard_map`` over "model": every shard executes
-  the SAME single-device Pallas kernel on its local q heads and pool
+  the SAME single-device decode (`ops.dispatch`) on its local q heads and pool
   segment — no collectives inside attention (the psum after the
   row-parallel o-proj, inserted by GSPMD, is the only cross-shard step,
   exactly as on the dense TP path).
@@ -180,38 +179,33 @@ def build_pool_tp(cache, keep: jax.Array, sink: int, tail_cap: int,
 
 
 def pool_attend_tp(q, cache, k_tail_l, v_tail_l, tail_len, layer, *,
-                   scale: float, interpret: bool, q8: bool):
-    """shard_map wrapper: run the single-device pool decode kernel on every
+                   scale: float, route: str):
+    """shard_map wrapper: run the single-device pool decode on every
     shard's local q heads + pool segment.
 
     q (T, H_q, D) sharded over heads; k_tail_l/v_tail_l: the CURRENT
-    layer's (Hkv, Tcap, D) tails (head-sharded)."""
-    from kvzip_tpu.ops.pool_decode import (pool_decode_attend,
-                                           pool_decode_attend_int4)
+    layer's (Hkv, Tcap, D) tails (head-sharded); ``route``: the bf16 pool's
+    `ops.dispatch.segment_route`."""
+    from kvzip_tpu.ops import attention as attn_ops
+    from kvzip_tpu.ops import dispatch
 
     mesh = cache.mesh
     is4 = isinstance(cache, PoolInt4KV)
-    align, max_rows = cache.align, cache.max_rows
-
+    max_rows = cache.max_rows
     if is4:
         pools = (cache.k_pool_q, cache.k_pool_s, cache.k_pool_z,
                  cache.v_pool_q, cache.v_pool_s, cache.v_pool_z)
         pool_specs = (P(None, "model"),) * 6
+        attend = attn_ops.pool_decode_int4
     else:
         pools = (cache.k_pool, cache.v_pool)
         pool_specs = (P(None, "model"), P("model", None))
+        attend = dispatch.pool_decode(route)
 
     def local(q_l, *args):
         (*pools_l, rh_l, off_l, rows_l, kt_l, vt_l, tl, li) = args
-        kw = dict(scale=scale, align=align, max_rows=max_rows,
-                  interpret=interpret)
-        if is4:
-            return pool_decode_attend_int4(
-                q_l, *pools_l, rh_l, off_l[0], rows_l[0], kt_l, vt_l,
-                tl, li, q8=q8, **kw)
-        return pool_decode_attend(
-            q_l, *pools_l, rh_l, off_l[0], rows_l[0], kt_l, vt_l,
-            tl, li, **kw)
+        return attend(q_l, *pools_l, rh_l, off_l[0], rows_l[0], kt_l, vt_l,
+                      tl, li, scale=scale, max_rows=max_rows)
 
     return _shard_map(
         local, mesh,

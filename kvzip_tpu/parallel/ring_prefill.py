@@ -16,7 +16,7 @@ causal attention with a ring schedule:
   result is bitwise-equivalent math to single-device causal attention (up
   to f32 accumulation order).
 
-Wall-clock model: each hop moves S·H·D·2 bytes over ICI while computing
+Wall-clock model: each hop moves S·H·D·2 bytes between cards while computing
 S×S·H·D MACs — compute-bound for S ≥ a few hundred, so the ring pipeline
 hides the collectives (scaling-book §ring-attention).
 
@@ -177,7 +177,7 @@ def reshard_to_cache(k: jax.Array, v: jax.Array, mesh: Mesh, cache):
     """Place ring-prefill KV into an engine cache (head-sharded layout).
 
     k/v: (L, Hkv, T, D). One cross-axis device_put performs the
-    sequence->head reshard (GSPMD lowers it to an all-to-all over ICI).
+    sequence->head reshard (GSPMD lowers it to an all-to-all).
     """
     import dataclasses
 

@@ -4,30 +4,25 @@ The round-3 flat layout (`cache.FlatInt4KV`) stacks layers with a UNIFORM
 padded row count ``r_pad = max over layers of kept rows``. That is fine at
 pair level (layers keep similar counts) but degenerates at head level: any
 layer that keeps all its heads forces r_pad = full capacity, so the "flat"
-stack is as large as the dense cache and decode reads full-capacity traffic
-(the 480k head demo decoded 3x SLOWER than the full cache through the dense
-int4 fallback kernel's ~60 GB/s strided DMA).
+stack is as large as the dense cache and decode reads full-capacity traffic.
 
 Here every layer's kept rows are concatenated into one pool:
 
-- ``k_pool_q/v_pool_q (D//2, P)``: packed nibbles, K and V both TRANSPOSED
-  (minor dim = pool rows, tile-aligned; the NN/NT forms the kernels need);
-- per-layer ``layer_off`` row offsets, each a multiple of ``align`` so the
-  decode kernel's Pallas index maps can address layer segments in whole
-  blocks (the offsets ride in as prefetched scalars, exactly like the layer
-  index of the stacked flat kernels);
-- per-layer live counts ``layer_rows``; intra-layer padding rows carry
-  ``row_head = -1`` and can never match a query head.
+- ``k_pool (D, P)`` keys TRANSPOSED, ``v_pool (P, D)``; the int4 pool keeps
+  packed nibbles ``(D//2, P)`` for both with per-row scale/zero;
+- per-layer ``layer_off`` row offsets, each a multiple of ``align``;
+- per-layer live counts ``layer_rows``: a layer's live rows are
+  ``[off, off + rows)``, head-major, and padding rows carry
+  ``row_head = -1`` so they can never match a query head.
 
-Decode attention reads exactly the live rows of the CURRENT layer (plus at
-most one alignment block of padding), whatever the per-layer spread — the
-TPU equivalent of the reference's flattened varlen view over per-head kept
+Decode attention reads the live rows of the CURRENT layer, whatever the
+per-layer spread — the reference's flattened varlen view over per-head kept
 rows (`attention/kvcache.py:152-185` + `attention/attn.py:56-73`, which the
 reference uses for BOTH pair- and head-level eviction).
 
 Memory discipline mirrors ``cache.build_flat_int4_stepped``: the builder
 consumes the dense cache array-by-array (donated, synchronized), so peak =
-dense + ONE pool array — the regime that fits 480k on a 16 GB chip.
+dense + ONE pool array.
 """
 
 from __future__ import annotations
@@ -41,6 +36,13 @@ import jax.numpy as jnp
 import numpy as np
 
 from kvzip_tpu.cache import Int4KVCache, KVCache, _flat_plan_int4
+
+
+# Layer segments start on a 128-row boundary: 256-byte aligned bf16 key
+# columns for the decode kernel's loads. The kernel needs nothing coarser
+# (it finds each head's rows itself), and padding stays under 128 rows a
+# layer.
+POOL_ALIGN = 128
 
 
 def _round_up(n: int, m: int) -> int:
@@ -163,7 +165,7 @@ class ConsumedCache:
     mid-way: the builders gut the dense cache array-by-array (that IS the
     memory discipline that lets 480k fit), so after a failure the dense
     state is gone. Any attribute access explains that instead of surfacing
-    an opaque ``NoneType`` error (ADVICE r4)."""
+    an opaque ``NoneType`` error."""
 
     def __init__(self, note: str):
         object.__setattr__(self, "_note", note)
@@ -182,8 +184,8 @@ def plan_offsets(per_layer_rows: np.ndarray, align: int
 
     Returns (layer_off row offsets, alloc columns, r_max gather width,
     max_rows). Each layer's segment is padded to an ``align`` multiple
-    (>= one block even for empty layers, so the kernel's clamped index map
-    never goes negative); the allocation leaves ``r_max`` columns after the
+    (>= one ``align`` block even for empty layers); the allocation leaves
+    ``r_max`` columns after the
     last offset because the builders write a uniform ``r_max``-wide slab
     per layer (forward order — each later layer's write overwrites the
     previous layer's spill).
@@ -276,7 +278,7 @@ def _plan(cache, keep: jax.Array, sink: int, align: int):
 
 def build_pool_int4_stepped(cache: Int4KVCache, keep: jax.Array, sink: int,
                             tail_cap: int, dtype=jnp.bfloat16,
-                            align: int = 8192) -> PoolInt4KV:
+                            align: int = POOL_ALIGN) -> PoolInt4KV:
     """Compact a dense INT4 cache into the pool layout with bounded peak.
 
     Each gather donates its dense source and synchronizes before the next
@@ -294,8 +296,7 @@ def build_pool_int4_stepped(cache: Int4KVCache, keep: jax.Array, sink: int,
     # output — "donated buffers were not usable"). The real memory
     # discipline is dropping each dense reference right after its gather:
     # holding them all on the `cache` dataclass kept dense K resident
-    # through the V gather and OOMed the 480k head-level build
-    # (bench_results/demo_480k_head_r4.log).
+    # through the V gather.
     seen = cache.seen
     srcs = dict(k_s=cache.k_s, k_z=cache.k_z, v_s=cache.v_s, v_z=cache.v_z,
                 k_q=cache.k_q, v_q=cache.v_q)
@@ -371,7 +372,7 @@ def _pool_gather_v_bf16(a: jax.Array, take, kept, off, alloc: int):
 
 
 def build_pool_stepped(cache: KVCache, keep: jax.Array, sink: int,
-                       tail_cap: int, align: int = 8192) -> PoolKV:
+                       tail_cap: int, align: int = POOL_ALIGN) -> PoolKV:
     """bf16 variant of :func:`build_pool_int4_stepped` (dense consumed)."""
     L, H, C0, D = cache.k.shape
     take, kept, lengths, off, alloc, C, max_rows = _plan(
@@ -408,15 +409,14 @@ def build_pool_stepped(cache: KVCache, keep: jax.Array, sink: int,
 def synthetic_full_pool(num_layers: int, num_kv_heads: int, head_dim: int,
                         per_head_rows: int, tail_cap: int,
                         dtype=jnp.bfloat16, int4: bool = True,
-                        align: int = 8192, seen: int = 0):
+                        align: int = POOL_ALIGN, seen: int = 0):
     """Full-occupancy pool with the exact geometry a real all-rows-kept
     build produces — the honest full-cache decode baseline after the dense
-    cache has been donated away (decode time is value-independent on TPU;
-    constant fill avoids jax.random's full-shape int32 temporary).
+    cache has been donated away (decode time does not depend on the
+    values; constant fill avoids jax.random's full-shape int32 temporary).
 
     cf. ``Engine.synthetic_full_flat_state`` (round-2/3 baseline); the pool
-    form serves head-level runs too, which previously had no baseline that
-    fit (`bench_results/demo_480k_head_r3.log` RESOURCE_EXHAUSTED).
+    form serves head-level runs too.
     """
     L, H, D = num_layers, num_kv_heads, head_dim
     rows_l = H * per_head_rows

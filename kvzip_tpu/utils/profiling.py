@@ -1,6 +1,5 @@
-"""Phase timers + device memory reporting (reference `utils/func.py:42-79`,
-TPU-native: block_until_ready barriers + jax device memory_stats; optional
-jax.profiler trace capture)."""
+"""Phase timers + device memory reporting (reference `utils/func.py:42-79`:
+jax device memory_stats; optional jax.profiler trace capture)."""
 
 from __future__ import annotations
 
@@ -11,22 +10,18 @@ import jax
 
 
 def device_mem_gb() -> tuple:
-    """(allocated GB, limit GB) of the default device; (0,0) if unsupported."""
-    try:
-        stats = jax.devices()[0].memory_stats() or {}
-        alloc = stats.get("bytes_in_use", 0) / 1024 ** 3
-        limit = stats.get("bytes_limit", 0) / 1024 ** 3
-        return alloc, limit
-    except Exception:
-        return 0.0, 0.0
+    """(allocated GB, limit GB) of the default device. Raises where the
+    device keeps no memory statistics (the CPU keeps none)."""
+    dev = jax.devices()[0]
+    stats = dev.memory_stats()
+    if not stats:
+        raise RuntimeError(f"{dev.platform} device reports no memory stats")
+    return stats["bytes_in_use"] / 1024 ** 3, stats["bytes_limit"] / 1024 ** 3
 
 
 def sync():
-    """Barrier over all live arrays on the default backend."""
-    try:
-        jax.effects_barrier()
-    except Exception:
-        pass
+    """Wait for pending side effects (the engine blocks on its own chunks)."""
+    jax.effects_barrier()
 
 
 class TimeStamp:
@@ -53,10 +48,12 @@ class TimeStamp:
     def __call__(self, msg: str = "", denominator: float = 1.0):
         if self.verbose:
             sync()
-            alloc, limit = device_mem_gb()
+            mem = ""
+            if jax.devices()[0].platform != "cpu":
+                alloc, limit = device_mem_gb()
+                mem = f" Mem: {alloc:.2f}/{limit:.2f} GB."
             tt = self.elapsed(denominator)
-            print(f"## Time: {tt}{self.unit}. Mem: {alloc:.2f}/{limit:.2f} GB."
-                  f" [{msg}]", flush=True)
+            print(f"## Time: {tt}{self.unit}.{mem} [{msg}]", flush=True)
             self.set()
 
 

@@ -1,13 +1,13 @@
-"""Regression tests for the round-1 ADVICE findings.
+"""Regression tests for early review findings.
 
 1. (high) Engine.scoring buffer: _place_scores writes a score_width-wide
    window at offsets that advance by score_chunk_size; when chunk < width the
    final writes exceeded round_up(ctx_len, width) and dynamic_slice clamped
    the start — corrupting earlier scores and zeroing the true tail.
 2. (medium) FlatInt4KV fell through the FlatKV-only chunk-ladder restriction
-   (>=1024-token queries overflow VMEM) and the one-shot re-prune guard.
-3. (medium) flat_decode block size could collapse below lane width when the
-   VMEM-fit block was not a power of two.
+   (long queries must take the evicted-cache ladder) and the one-shot
+   re-prune guard.
+3. (medium) the pool kernel's split count must stay a power of two, >= 1.
 4. (low) w8a8 weight dicts crashed parallel._trim, so w8a8 + mesh failed.
 """
 
@@ -18,7 +18,6 @@ import pytest
 
 from kvzip_tpu.config import tiny_config
 from kvzip_tpu.engine import Engine, _place_scores, _round_up
-from kvzip_tpu.ops.flat_decode import _pick_block
 
 
 def test_place_scores_geometry_no_clamp():
@@ -61,7 +60,7 @@ def test_scoring_tail_positions_scored():
 
 def test_int4_flat_long_query():
     """>=1024-token query against an int4 flat cache must route through the
-    flat chunk ladder (<=64-token chunks) instead of OOM-ing VMEM."""
+    evicted-cache chunk ladder (<=64-token chunks)."""
     cfg = tiny_config("llama", head_dim=128, num_heads=4, num_kv_heads=2,
                       hidden_size=128)
     eng = Engine("tiny-llama", kv_type="evict", config=cfg, dtype=jnp.float32,
@@ -85,14 +84,17 @@ def test_int4_flat_long_query():
         eng.prune(st, 0.3, "pair")
 
 
-def test_pick_block_power_of_two():
-    for rows in (64, 1792, 28 * 64, 8 * 64):  # incl. H=28,T=64 (old BLK=768)
-        for r_mult in range(1, 12):
-            R = 2048 * r_mult
-            blk = _pick_block(R, 2048, rows)
-            assert blk >= 128, (rows, R, blk)
-            assert blk & (blk - 1) == 0, (rows, R, blk)
-            assert R % blk == 0, (rows, R, blk)
+def test_pick_splits_power_of_two():
+    """Pool kernel splits: a power of two, >= 1, never more than one key
+    block per split on an even share of the rows (incl. H=28, T=64)."""
+    from kvzip_tpu.ops.pool_decode import pick_splits
+
+    for n_heads in (1, 4, 8):
+        for q_tiles in (1, 2, 7):
+            for max_rows in (128, 4096, 131072):
+                ns = pick_splits(n_heads, q_tiles, max_rows, 64)
+                assert ns >= 1 and ns & (ns - 1) == 0, (n_heads, ns)
+                assert ns <= max(1, 2 * max_rows // (n_heads * 64))
 
 
 @pytest.mark.skipif(len(jax.devices()) < 4, reason="needs >=4 devices")

@@ -1,4 +1,4 @@
-"""Flat compacted decode cache: kernel parity + end-to-end engine path."""
+"""Flat compacted decode cache: decode parity + end-to-end engine path."""
 
 import dataclasses
 
@@ -10,8 +10,7 @@ import pytest
 from kvzip_tpu.cache import build_flat, init_cache
 from kvzip_tpu.config import tiny_config
 from kvzip_tpu.engine import Engine
-from kvzip_tpu.ops.attention import attend_dense
-from kvzip_tpu.ops.flat_decode import flat_decode_attend
+from kvzip_tpu.ops.attention import attend_dense, flat_decode
 
 CTX = ("Flat decode caches read only live rows. " * 30 +
        "The hidden token is marmalade. " +
@@ -59,11 +58,10 @@ def test_flat_kernel_matches_dense(T):
         row_head[r:r + lens[h]] = h
         r += lens[h]
 
-    got = flat_decode_attend(
+    got = flat_decode(
         q, jnp.asarray(k_flat.T), jnp.asarray(v_flat), jnp.asarray(row_head),
         jnp.asarray(k_tail), jnp.asarray(v_tail),
-        jnp.asarray(tail_used, jnp.int32), scale=D ** -0.5, block=16,
-        interpret=True)
+        jnp.asarray(tail_used, jnp.int32), scale=D ** -0.5)
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                rtol=2e-5, atol=2e-5)
 

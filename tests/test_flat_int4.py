@@ -1,4 +1,4 @@
-"""INT4 flat decode: kernel parity with the bf16 flat path + engine e2e."""
+"""INT4 flat decode: parity with the bf16 flat path + engine e2e."""
 
 import jax
 import jax.numpy as jnp
@@ -6,7 +6,7 @@ import numpy as np
 
 from kvzip_tpu.config import tiny_config
 from kvzip_tpu.engine import Engine
-from kvzip_tpu.ops.flat_decode import flat_decode_attend, flat_decode_attend_int4
+from kvzip_tpu.ops.attention import flat_decode, flat_decode_int4
 from kvzip_tpu.ops.quant import dequantize_int4, quantize_int4
 
 CTX = ("Quantized flat caches stream packed nibbles. " * 25 +
@@ -32,19 +32,18 @@ def test_int4_flat_kernel_matches_bf16_flat():
     kq, ks, kz = quantize_int4(jnp.asarray(k_flat), pack="split")
     vq, vs, vz = quantize_int4(jnp.asarray(v_flat), pack="split")
 
-    got = flat_decode_attend_int4(
+    got = flat_decode_int4(
         q, kq.T, ks[:, 0], kz[:, 0], vq.T, vs[:, 0], vz[:, 0],
         jnp.asarray(row_head), jnp.asarray(k_tail), jnp.asarray(v_tail),
-        jnp.asarray(tail_used, jnp.int32), scale=D ** -0.5, block=32,
-        interpret=True)
+        jnp.asarray(tail_used, jnp.int32), scale=D ** -0.5)
 
-    # reference: bf16 flat kernel over the dequantized rows
+    # reference: bf16 flat decode over the dequantized rows
     k_deq = dequantize_int4(kq, ks, kz, jnp.float32, pack="split")
     v_deq = dequantize_int4(vq, vs, vz, jnp.float32, pack="split")
-    want = flat_decode_attend(
+    want = flat_decode(
         q, k_deq.T, v_deq, jnp.asarray(row_head), jnp.asarray(k_tail),
         jnp.asarray(v_tail), jnp.asarray(tail_used, jnp.int32),
-        scale=D ** -0.5, block=32, interpret=True)
+        scale=D ** -0.5)
 
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                rtol=2e-5, atol=2e-5)
@@ -121,34 +120,3 @@ def test_stepped_build_matches_oneshot():
         np.testing.assert_array_equal(
             np.asarray(getattr(got, f)), np.asarray(getattr(want, f)),
             err_msg=f)
-
-
-def test_int4_flat_kernel_q8_close_to_exact():
-    """int8-attention mode (s8 dots, per-row q/p quantization) stays close
-    to the exact nibble path — rounding is ~8-bit on logits/probs."""
-    rng = np.random.default_rng(7)
-    Hkv, G, D, T = 2, 2, 128, 1
-    H = Hkv * G
-    R_pad, Tcap, tail_used = 64, 8, 2
-
-    k_flat = rng.standard_normal((R_pad, D)).astype(np.float32)
-    v_flat = rng.standard_normal((R_pad, D)).astype(np.float32)
-    row_head = np.full((R_pad,), -1, np.int32)
-    row_head[:30] = 0
-    row_head[30:60] = 1
-    k_tail = rng.standard_normal((Hkv, Tcap, D)).astype(np.float32)
-    v_tail = rng.standard_normal((Hkv, Tcap, D)).astype(np.float32)
-    q = jnp.asarray(rng.standard_normal((T, H, D)), jnp.float32)
-
-    kq, ks, kz = quantize_int4(jnp.asarray(k_flat), pack="split")
-    vq, vs, vz = quantize_int4(jnp.asarray(v_flat), pack="split")
-    args = (q, kq.T, ks[:, 0], kz[:, 0], vq.T, vs[:, 0], vz[:, 0],
-            jnp.asarray(row_head), jnp.asarray(k_tail), jnp.asarray(v_tail),
-            jnp.asarray(tail_used, jnp.int32))
-
-    exact = flat_decode_attend_int4(*args, scale=D ** -0.5, block=32,
-                                    interpret=True)
-    got = flat_decode_attend_int4(*args, scale=D ** -0.5, block=32,
-                                  interpret=True, q8=True)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(exact),
-                               rtol=0.05, atol=0.05)

@@ -75,7 +75,7 @@ def test_hybrid_prune_ratio_accounts_static_only():
 
 def test_hybrid_ring_memory_window_bound():
     """Sliding layers hold only ~window rows no matter the context length
-    (round-1 kept full-capacity sliding buffers — the VERDICT r1 gap #4)."""
+    (round-1 kept full-capacity sliding buffers)."""
     cfg = tiny_config("gemma3")
     eng = make_engine()
     state = eng.prefill(CTX, prefill_chunk_size=300)

@@ -58,8 +58,8 @@ def test_head_level_prune_drops_whole_heads(tmp_path):
 
 def test_head_evict_zero_copy_matches_retain(tmp_path):
     """Head-level evict is a zero-copy lengths update (no gather, no flat
-    build — VERDICT r3: the 480k head demo OOMed in the flat build whose
-    r_pad is useless padding at head granularity). Generations must equal
+    build — the flat build's r_pad is useless padding at head
+    granularity). Generations must equal
     the retain-masked head prune on the same scores."""
     cfg = tiny_config("llama")
     eng_e = Engine("tiny-llama", kv_type="evict", config=cfg,

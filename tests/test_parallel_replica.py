@@ -1,6 +1,6 @@
-"""Multi-slice ("replica" over DCN) mesh: own file so the xdist worker
-doesn't stack it on top of the other 8-device engines (late heavy compiles
-in one long-lived XLA:CPU process are unstable — NOTES.md)."""
+"""Mesh with a "replica" axis (independent device groups): own file so
+the xdist worker doesn't stack it on top of the other 8-device engines
+(late heavy compiles in one long-lived XLA:CPU process are unstable)."""
 
 import jax
 import jax.numpy as jnp

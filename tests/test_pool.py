@@ -1,6 +1,6 @@
-"""POOL decode layout: kernel parity vs the flat kernels, build parity vs
-the round-3 flat build, engine e2e (pair + head levels), refold, and
-state save/load."""
+"""POOL decode layout: decode parity vs the flat layout's reference, the
+GPU kernel (interpret mode) vs that reference, build parity vs the round-3
+flat build, engine e2e (pair + head levels), refold, and state save/load."""
 
 import dataclasses
 
@@ -11,8 +11,9 @@ import pytest
 
 from kvzip_tpu.config import tiny_config
 from kvzip_tpu.engine import Engine
-from kvzip_tpu.ops.flat_decode import flat_decode_attend, flat_decode_attend_int4
-from kvzip_tpu.ops.pool_decode import pool_decode_attend, pool_decode_attend_int4
+from kvzip_tpu.ops.attention import (flat_decode, flat_decode_int4,
+                                     pool_decode_int4)
+from kvzip_tpu.ops.pool_decode import pool_decode_attend
 from kvzip_tpu.ops.quant import dequantize_int4, quantize_int4
 
 CTX = ("Pool layouts concatenate every layer's kept rows. " * 25 +
@@ -66,7 +67,7 @@ def _mk_pool_int4(rng, L, Hkv, D, rows_per_layer, align, Tcap):
 
 @pytest.mark.parametrize("layer", [0, 1, 2])
 def test_pool_int4_kernel_matches_flat(layer):
-    """Per-layer pool attention == the round-3 flat kernel fed that layer's
+    """Per-layer pool attention == the round-3 flat layout fed that layer's
     rows alone (same tail, same quantized values)."""
     rng = np.random.default_rng(0)
     L, Hkv, G, D, T = 3, 2, 2, 128, 1
@@ -81,16 +82,15 @@ def test_pool_int4_kernel_matches_flat(layer):
     v_tail = rng.standard_normal((Hkv, Tcap, D)).astype(np.float32)
     q = jnp.asarray(rng.standard_normal((T, H, D)), jnp.float32)
 
-    got = pool_decode_attend_int4(
+    got = pool_decode_int4(
         q, pool["k_pool_q"], pool["k_pool_s"], pool["k_pool_z"],
         pool["v_pool_q"], pool["v_pool_s"], pool["v_pool_z"],
         pool["row_head"], pool["layer_off"], pool["layer_rows"],
         jnp.asarray(k_tail), jnp.asarray(v_tail),
         jnp.asarray(tail_used, jnp.int32), jnp.asarray(layer, jnp.int32),
-        scale=D ** -0.5, align=meta["align"], max_rows=meta["max_rows"],
-        block=32, interpret=True)
+        scale=D ** -0.5, max_rows=meta["max_rows"])
 
-    # reference: flat kernel over this layer's rows, padded to a block
+    # reference: flat layout over this layer's rows, padded to a block
     r = rows_per_layer[layer]
     r_pad = -(-r // 32) * 32
     kq, ks, kz = k_rows[layer]
@@ -104,17 +104,18 @@ def test_pool_int4_kernel_matches_flat(layer):
 
     rh_l = np.full((r_pad,), -1, np.int32)
     rh_l[:r] = heads[layer]
-    want = flat_decode_attend_int4(
+    want = flat_decode_int4(
         q, pad_t(kq), pad_s(ks), pad_s(kz), pad_t(vq), pad_s(vs), pad_s(vz),
         jnp.asarray(rh_l), jnp.asarray(k_tail), jnp.asarray(v_tail),
-        jnp.asarray(tail_used, jnp.int32), scale=D ** -0.5, block=32,
-        interpret=True)
+        jnp.asarray(tail_used, jnp.int32), scale=D ** -0.5)
 
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                rtol=2e-5, atol=2e-5)
 
 
 def test_pool_bf16_kernel_matches_flat():
+    """The GPU pool kernel (Triton route, interpret mode) == the plain
+    segment reference fed each layer's rows alone."""
     rng = np.random.default_rng(1)
     L, Hkv, G, D, T = 2, 2, 2, 128, 4
     H = Hkv * G
@@ -149,7 +150,7 @@ def test_pool_bf16_kernel_matches_flat():
             jnp.asarray(off), jnp.asarray(rows, jnp.int32),
             jnp.asarray(k_tail), jnp.asarray(v_tail),
             jnp.asarray(tail_used, jnp.int32), jnp.asarray(layer, jnp.int32),
-            scale=D ** -0.5, align=align, max_rows=max(r_pad), block=32,
+            scale=D ** -0.5, max_rows=max(r_pad), block_k=16,
             interpret=True)
 
         k, v, h = layers[layer]
@@ -157,12 +158,11 @@ def test_pool_bf16_kernel_matches_flat():
         rp = -(-r // 32) * 32
         rh_l = np.full((rp,), -1, np.int32)
         rh_l[:r] = h
-        want = flat_decode_attend(
+        want = flat_decode(
             q, jnp.pad(jnp.asarray(k.T), ((0, 0), (0, rp - r))),
             jnp.pad(jnp.asarray(v), ((0, rp - r), (0, 0))),
             jnp.asarray(rh_l), jnp.asarray(k_tail), jnp.asarray(v_tail),
-            jnp.asarray(tail_used, jnp.int32), scale=D ** -0.5, block=32,
-            interpret=True)
+            jnp.asarray(tail_used, jnp.int32), scale=D ** -0.5)
         np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                    rtol=2e-5, atol=2e-5, err_msg=f"layer {layer}")
 
@@ -340,12 +340,12 @@ def test_pool_refold_matches_unfolded_attention():
     q = jnp.asarray(rng.standard_normal((T, H, D)), jnp.float32)
 
     def attend(c, layer):
-        return pool_decode_attend_int4(
+        return pool_decode_int4(
             q, c.k_pool_q, c.k_pool_s, c.k_pool_z, c.v_pool_q, c.v_pool_s,
             c.v_pool_z, c.row_head, c.layer_off, c.layer_rows,
             c.k_tail[layer], c.v_tail[layer], c.tail_len,
-            jnp.asarray(layer, jnp.int32), scale=D ** -0.5, align=c.align,
-            max_rows=c.max_rows, block=32, interpret=True)
+            jnp.asarray(layer, jnp.int32), scale=D ** -0.5,
+            max_rows=c.max_rows)
 
     before = [attend(cache, l) for l in range(L)]
     folded = refold_pool(cache)
@@ -362,8 +362,7 @@ def test_pool_refold_matches_unfolded_attention():
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
 def test_pool_save_load_roundtrip(tmp_path, dtype):
     # bfloat16 matters: numpy persists ml_dtypes.bfloat16 as a void ("|V2")
-    # descriptor — the round-4 flagship's first saved-state load crashed on
-    # exactly this (bench_results/bench_r4_warm.log)
+    # descriptor that np.load cannot hand back to JAX
     cfg = tiny_config("llama", head_dim=128, num_heads=4, num_kv_heads=2,
                       hidden_size=128)
     eng = Engine("tiny-llama", kv_type="evict", config=cfg, dtype=dtype,

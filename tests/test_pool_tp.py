@@ -1,6 +1,6 @@
 """Tensor-parallel POOL decode (parallel/pool_tp.py) vs single device.
 
-VERDICT r4 item 3: the flagship pool decode path must work under the mesh.
+The flagship pool decode path must work under the mesh.
 8 virtual CPU devices (conftest); per-shard pools built at prune, decode
 through shard_mapped pool kernels."""
 

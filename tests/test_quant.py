@@ -60,7 +60,7 @@ def test_int4_attention_close_to_fp():
 
 
 def test_int4_split_pack_roundtrip():
-    """TPU cache layout: element j in the high nibble, j+D/2 low."""
+    """Cache layout: element j in the high nibble, j+D/2 low."""
     rng = np.random.default_rng(5)
     x = rng.standard_normal((4, 256)).astype(np.float32)
     p, s, z = quantize_int4(jnp.asarray(x), pack="split")

@@ -1,5 +1,4 @@
-"""Multi-turn beyond decode_budget on the flat evict path (VERDICT r1 item 7):
-the tail folds into the flat context instead of raising."""
+"""Multi-turn beyond decode_budget on the flat evict path: the tail folds into the flat context instead of raising."""
 
 import jax
 import jax.numpy as jnp
@@ -17,7 +16,7 @@ CTX = ("Multi turn sessions keep appending question and answer tokens. " * 20
 
 def test_refold_flat_preserves_attention():
     """Attention over a refolded cache == attention over flat+tail."""
-    from kvzip_tpu.ops.flat_decode import flat_decode_attend
+    from kvzip_tpu.ops.attention import flat_decode
 
     rng = np.random.default_rng(0)
     Hkv, G, D = 2, 2, 8
@@ -38,7 +37,7 @@ def test_refold_flat_preserves_attention():
     v_tail = rng.standard_normal((1, Hkv, Tcap, D)).astype(np.float32)
 
     # tail_used-1 committed rows + one "current step" row at index
-    # tail_used-1 (the flat kernel always attends the current row via +qi+1)
+    # tail_used-1 (the flat decode always attends the current row via +qi+1)
     committed = tail_used - 1
     cache = FlatKV(
         k_flat=jnp.asarray(k_flat).transpose(0, 2, 1),
@@ -52,11 +51,11 @@ def test_refold_flat_preserves_attention():
     q = jnp.asarray(rng.standard_normal((1, H, D)), jnp.float32)
     # before: flat rows + committed tail rows + current row (index committed)
     # (computed BEFORE refold_flat — it donates and deletes the input cache)
-    want = flat_decode_attend(
+    want = flat_decode(
         q, cache.k_flat[0], cache.v_flat[0], cache.row_head[0],
         cache.k_tail[0], cache.v_tail[0],
         jnp.asarray(committed, jnp.int32),
-        scale=D ** -0.5, block=16, interpret=True)
+        scale=D ** -0.5)
     cur_k = jnp.asarray(k_tail[0, :, committed:committed + 1])
     cur_v = jnp.asarray(v_tail[0, :, committed:committed + 1])
 
@@ -67,12 +66,12 @@ def test_refold_flat_preserves_attention():
 
     # after: committed rows live in the flat part; current row re-appended
     # at tail position 0
-    got = flat_decode_attend(
+    got = flat_decode(
         q, folded.k_flat[0], folded.v_flat[0], folded.row_head[0],
         jax.lax.dynamic_update_slice(folded.k_tail[0], cur_k, (0, 0, 0)),
         jax.lax.dynamic_update_slice(folded.v_tail[0], cur_v, (0, 0, 0)),
         jnp.asarray(0, jnp.int32),
-        scale=D ** -0.5, block=16, interpret=True)
+        scale=D ** -0.5)
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                rtol=2e-5, atol=2e-5)
 

@@ -56,8 +56,8 @@ def test_ring_prefill_matches_sequential():
 
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
 def test_engine_seq_parallel_full_pipeline():
-    """Engine(seq_parallel=True) routes prefill through the ring (VERDICT r2
-    item 6): the FULL pipeline — prefill -> scoring -> prune -> decode — is
+    """Engine(seq_parallel=True) routes prefill through the ring: the FULL
+    pipeline — prefill -> scoring -> prune -> decode — is
     equal to the sequential single-device engine."""
     eng, cfg = _engine()
     rng = np.random.default_rng(7)

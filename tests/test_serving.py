@@ -5,6 +5,7 @@ import numpy as np
 
 from kvzip_tpu.config import tiny_config
 from kvzip_tpu.engine import Engine
+from kvzip_tpu.prune import prune_mask
 from kvzip_tpu.serving import batched_generate
 
 CTXS = [
@@ -71,8 +72,8 @@ def test_scheduler_mixed_cache_types():
 
 
 def test_batched_flat_matches_sequential():
-    """Flat (evicted) contexts decode batched through the flat kernel
-    (VERDICT r1 item 8) — parity vs sequential single-stream decode."""
+    """Flat (evicted) contexts decode batched through the merged flat
+    layout — parity vs sequential single-stream decode."""
     cfg = tiny_config("llama", head_dim=128, num_heads=4, num_kv_heads=2,
                       hidden_size=128)
     eng = Engine("tiny-llama", kv_type="evict", config=cfg, dtype=jnp.float32,
@@ -174,9 +175,9 @@ def test_batched_pool_int4_matches_sequential():
 
 
 def test_batched_pool_mixed_aligns():
-    """Requests whose pools were built at DIFFERENT align tiers (short ctx
-    -> 128, longer ctx -> 8192; engine._pool_align) merge at the max
-    align with replanned offsets — parity vs sequential decode."""
+    """Requests whose pools were built at DIFFERENT aligns (a pool saved by
+    another build, or built with another ``align``) merge at the max align
+    with replanned offsets — parity vs sequential decode."""
     import jax
 
     cfg = tiny_config("llama", head_dim=128, num_heads=4, num_kv_heads=2,
@@ -185,12 +186,21 @@ def test_batched_pool_mixed_aligns():
                  max_new_tokens=5, decode_budget=256, capacity_granularity=256,
                  score_chunk_size=256, flat_decode="on")
 
+    from kvzip_tpu.pool import build_pool_stepped
+
     long_ctx = ("Chronicle entry: the dam at Verlan holds 9200 megaliters. "
-                * 90)  # ~2.5k tokens -> align tier 8192
+                * 90)
     states = [eng.prefill(CTXS[0], prefill_chunk_size=300),
               eng.prefill(long_ctx, prefill_chunk_size=300)]
-    for st, r in zip(states, (0.5, 0.4)):
-        eng.prune(st, r, "pair")
+    eng.prune(states[0], 0.5, "pair")
+    # the second pool at a coarser align, through the builder directly
+    st = states[1]
+    keep, _, _ = prune_mask(st.score, 0.4, "pair", method="histogram")
+    st.score = None
+    st.cache = build_pool_stepped(st.cache, keep, st.sink,
+                                  eng.decode_budget, align=8192)
+    st.pruned = True
+    st.snapshot()
     aligns = {st.cache.align for st in states}
     assert len(aligns) == 2, f"expected mixed aligns, got {aligns}"
 

@@ -1,11 +1,11 @@
-"""W4A8 int4-weight kernel: quant/dequant roundtrip + Pallas parity."""
+"""W4A8 int4 weights: quant/dequant roundtrip, storage, and the jnp routes."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
 from kvzip_tpu.ops.w4a8 import (_w4a8_jnp, dequantize_weight_int4,
-                                quantize_weight_int4, w4a8_matmul)
+                                quantize_weight_int4)
 
 
 def test_quant_roundtrip_error_bounded():
@@ -44,35 +44,6 @@ def test_group_padding():
                                    rtol=1e-5, atol=1e-5)
 
 
-def test_pallas_matmul_matches_jnp_semantics():
-    """Kernel (interpret) == the jnp fallback with identical quantization
-    (both s8 activations, identical scale algebra)."""
-    rng = np.random.default_rng(1)
-    for T in (1, 8, 33):
-        x = jnp.asarray(rng.standard_normal((T, 256)), jnp.float32)
-        w = jnp.asarray(rng.standard_normal((256, 512)), jnp.float32)
-        wq = quantize_weight_int4(w)
-        got = w4a8_matmul(x, wq["q4"], wq["s"], wq["z"], block_t=8,
-                          interpret=True)
-        want = _w4a8_jnp(x, wq)
-        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                                   rtol=2e-4, atol=2e-4)
-
-
-def test_pallas_matmul_bias_and_bf16():
-    rng = np.random.default_rng(2)
-    x = jnp.asarray(rng.standard_normal((4, 128)), jnp.bfloat16)
-    w = jnp.asarray(rng.standard_normal((128, 256)), jnp.float32)
-    b = jnp.asarray(rng.standard_normal((256,)), jnp.float32)
-    wq = quantize_weight_int4(w)
-    got = w4a8_matmul(x, wq["q4"], wq["s"], wq["z"], bias=b, block_t=8,
-                      interpret=True)
-    want = _w4a8_jnp(x, wq, bias=b)
-    np.testing.assert_allclose(np.asarray(got, np.float32),
-                               np.asarray(want, np.float32),
-                               rtol=0.05, atol=0.05)
-
-
 def test_fuse_w4a8_exact():
     """Nibble-level refusion is LOSSLESS: the fused dict dequantizes to the
     column-concat of the individual dequantized weights."""
@@ -90,9 +61,9 @@ def test_fuse_w4a8_exact():
 
 
 def test_stacked_matmul_matches_per_layer():
-    """Stacked kernel (interpret) selects the right layer and matches the
-    jnp fallback for every layer index."""
-    from kvzip_tpu.ops.w4a8 import w4a8_matmul_stacked
+    """The stacked float32 route selects the right layer and matches the
+    per-layer jnp linear for every layer index."""
+    from kvzip_tpu.ops.w4a8 import w4a8_jnp_stacked
 
     rng = np.random.default_rng(4)
     L = 3
@@ -101,35 +72,18 @@ def test_stacked_matmul_matches_per_layer():
     for T in (1, 9):
         x = jnp.asarray(rng.standard_normal((T, 256)), jnp.float32)
         for l in range(L):
-            got = w4a8_matmul_stacked(x, wq["q4"], wq["s"], wq["z"],
-                                      jnp.int32(l), interpret=True)
+            got = w4a8_jnp_stacked(x, wq, jnp.int32(l))
             want = _w4a8_jnp(
                 x, {k: v[l] for k, v in wq.items()})
             np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                        rtol=2e-4, atol=2e-4)
 
 
-def test_pick_bt_gpb_always_mosaic_legal():
-    """Every (T, shape) combination must yield blocks Mosaic accepts: gpb
-    divisible by 8 or equal to Gp (the 480k demo died on a (1,4,37888)
-    scale block picked for a 256-token ladder chunk)."""
-    from kvzip_tpu.ops.w4a8 import _pad_groups, _pick_bt_gpb
-
-    shapes = [(3584, 4608), (3584, 37888), (18944, 3584), (3584, 3584),
-              (256, 384), (128, 256), (384, 256), (2048, 2048)]
-    for IN, OUT in shapes:
-        Gp, _ = _pad_groups(max(IN // 128, 1))
-        for T in (1, 8, 64, 256, 2304, 16384):
-            bt, gpb = _pick_bt_gpb(T, Gp, OUT // 2, OUT)
-            assert Gp % gpb == 0, (IN, OUT, T, bt, gpb)
-            assert gpb % 8 == 0 or gpb == Gp, (IN, OUT, T, bt, gpb)
-
-
 def test_dequant_route_matches_kernel_semantics():
-    """Large-T route (dequantize layer to bf16 + one MXU matmul): same A8
+    """GPU route (dequantize the layer to bf16 + one GEMM): same A8
     activation rounding, bf16 weight expansion adds only sub-percent noise
     vs the exact f32 scale algebra."""
-    from kvzip_tpu.ops.w4a8 import _w4a8_dequant_matmul
+    from kvzip_tpu.ops.w4a8 import w4a8_dequant_matmul
 
     rng = np.random.default_rng(6)
     L = 2
@@ -137,7 +91,7 @@ def test_dequant_route_matches_kernel_semantics():
     wq = quantize_weight_int4(w)
     x = jnp.asarray(rng.standard_normal((16, 256)), jnp.float32)
     for l in range(L):
-        got = _w4a8_dequant_matmul(x, wq, jnp.int32(l))
+        got = w4a8_dequant_matmul(x, wq, jnp.int32(l))
         want = _w4a8_jnp(x, {k: v[l] for k, v in wq.items()})
         # bf16 weight products under f32 accumulation: ~0.4% relative noise
         # on outputs of magnitude ~sqrt(IN); tolerance sized to that
@@ -147,8 +101,8 @@ def test_dequant_route_matches_kernel_semantics():
 
 def test_engine_w4a8_end_to_end():
     """weight_quant='w4a8' runs the full pipeline and tracks the bf16
-    engine's predictions closely (int4 per-group weights, jnp fallback on
-    CPU; the Pallas kernel parity is covered above)."""
+    engine's predictions closely (int4 per-group weights; the routes are
+    covered above)."""
     from kvzip_tpu.config import tiny_config
     from kvzip_tpu.engine import Engine
 
@@ -164,7 +118,7 @@ def test_engine_w4a8_end_to_end():
                  tokenizer=ref.tokenizer, weight_quant="w4a8",
                  max_new_tokens=5, decode_budget=256,
                  capacity_granularity=256, score_chunk_size=256)
-    # conversion fuses qkv / gate-up into single stacked-kernel launches
+    # conversion fuses qkv / gate-up into single GEMMs
     assert "q4" in eng.params["layers"]["wqkv"]
     assert "q4" in eng.params["layers"]["w_gateup"]
     assert "wq" not in eng.params["layers"]

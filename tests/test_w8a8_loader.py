@@ -1,4 +1,4 @@
-"""QServe-style pre-quantized W8A8 checkpoint loading (VERDICT r2 item 4).
+"""QServe-style pre-quantized W8A8 checkpoint loading.
 
 Fabricates a tiny checkpoint in the on-disk layout the reference consumes via
 `model/quant_model/w8a8kv4_llama.py:627-748` (per-linear int8 ``.weight`` in
@@ -119,7 +119,7 @@ def test_logits_match_quantize_on_load(ckpts):
 
 
 def test_stream_quantize_matches_unchunked(ckpts):
-    """Streaming bf16->quant loader (VERDICT r2 item 4): chunked host->device
+    """Streaming bf16->quant loader: chunked host->device
     conversion produces EXACTLY the same quantized stacks as materializing
     the full bf16 params first — for both W8A8 and W4A8 forms."""
     bf16, _ = ckpts

@@ -1,7 +1,6 @@
 #!/usr/bin/env bash
-# One-shot accuracy sweep for the moment REAL WEIGHTS appear (VERDICT r1
-# item 4 / r2 item 10). This environment has no network, so every number so
-# far ran on random weights + the byte tokenizer; mount a HuggingFace
+# One-shot accuracy sweep for the moment REAL WEIGHTS appear. Without a
+# checkpoint every run uses random weights + the byte tokenizer; mount a HuggingFace
 # checkpoint dir (config.json + *.safetensors + tokenizer files — bf16 or
 # QServe W8A8 exports are auto-detected, kvzip_tpu/models/params.py) and run
 # the config matching the checkpoint's model:
